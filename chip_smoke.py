@@ -1,0 +1,342 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+Phases, one line of output each (or more):
+  1. the card's name and power limit (nvidia-smi), then the build of the
+     hand-written CUDA kernels from src/repro_torch/kernels/csrc;
+  2. each kernel against its plain PyTorch version (bf16 at 2e-2, f32 at
+     2e-5) at the serving path's shapes and at long shapes, with its time,
+     the plain version's time, the time of one library call computing the
+     same function (scaled_dot_product_attention, a yardstick the port never
+     calls) and the least time the card could take (bound);
+  3. full-width qwen2-7b (28 layers, bf16, random weights from a seed)
+     served by the speculative agent loop, speculation off then on, with
+     the kernels' launch counts over that run;
+  4. a batched engine slot against a standalone prefill + decode at full
+     width, teacher-forced, and the kernel path against the oracle path;
+  5. one JSON line on the kernels; last, one JSON line on the device.
+
+Exits non-zero without a CUDA device, outside a checkout of the repository,
+or on any failure. Imports nothing of JAX or of the JAX package.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+SEED = 0
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense: tensor bf16, fp32 FMA
+PEAK_BYTES = 3.35e12                                            # H100 SXM HBM3
+TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+L2_FLUSH_BYTES = 128 << 20      # larger than the 50 MB L2: each timed call starts cold
+
+
+def _time_ms(fn, iters, flush):
+    """Mean device time of one call. Each timed call is queued behind a
+    sleep kernel that outlasts the host's queueing of it, so the CUDA events
+    around the call time the device alone, not the host's dispatch (this
+    holds while one call launches fewer kernels than a stream queues, about
+    a thousand). The L2 cache is flushed before each call, outside the
+    events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_cycles = int(10 * (time.perf_counter() - t0) * 2e9)  # ten calls' time at 2 GHz
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def _bound(n_bytes, flops, dtype):
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _check(name, got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: kernel and plain version disagree, max abs err {err}")
+    return err
+
+
+def flash_case(ops, gen, flush, b, s, h, kv, d, dtype, window, timed):
+    F = torch.nn.functional
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=True, window=window)
+    want = ops.flash_attention(q, k, v, impl="plain", **kw)
+    got = ops.flash_attention(q, k, v, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    case = {"shape": [b, s, h, kv, d], "dtype": str(dtype).split(".")[1], "window": window,
+            "max_abs_err": _check(f"flash_attention {[b, s, h, kv, d]} window {window}",
+                                  got, want, dtype)}
+    if not timed:
+        return case
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    flops = 4 * int(mask.sum()) * d * h * b
+    case["bound_ms"], case["bound_by"] = _bound(_nbytes(q, k, v, got), flops, dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_mask = None if window is None else mask.cuda()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask,
+                                              is_causal=window is None, enable_gqa=True)
+
+    case["library_err"] = (library().transpose(1, 2).float() - want.float()).abs().max().item()
+    iters = 20 if s > 512 else 50
+    case["ms"] = _time_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), iters, flush)
+    case["plain_ms"] = _time_ms(lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
+                                iters, flush)
+    case["library_ms"] = _time_ms(library, iters, flush)
+    return case
+
+
+def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
+    F = torch.nn.functional
+    q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+    kc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
+    lengths = torch.randint(1, smax + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    want = ops.decode_attention(q, kc, vc, lengths, impl="plain", window=window)
+    got = ops.decode_attention(q, kc, vc, lengths, impl="kernel", window=window)
+    torch.cuda.synchronize()
+    lens = lengths.tolist()
+    case = {"shape": [b, h, kv, d, smax], "dtype": str(dtype).split(".")[1], "window": window,
+            "lengths": lens,
+            "max_abs_err": _check(f"decode_attention {[b, h, kv, d, smax]} lengths {lens}",
+                                  got, want, dtype)}
+    if not timed:
+        return case
+    visited = sum(min(n, smax) - (max(0, n - window) if window is not None else 0) for n in lens)
+    n_bytes = _nbytes(q, got, lengths) + 2 * visited * kv * d * kc.element_size()
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, 4 * visited * h * d, dtype)
+    pos = torch.arange(smax, device="cuda")[None, :]
+    lib_mask = pos < lengths[:, None]
+    if window is not None:
+        lib_mask &= pos >= lengths[:, None] - window
+    lib_mask = lib_mask[:, None, None, :]
+    q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=lib_mask, enable_gqa=True)
+
+    case["library_err"] = (library()[:, :, 0].float() - want.float()).abs().max().item()
+    kw = dict(window=window)
+    case["ms"] = _time_ms(lambda: ops.decode_attention(q, kc, vc, lengths, impl="kernel", **kw),
+                          50, flush)
+    case["plain_ms"] = _time_ms(
+        lambda: ops.decode_attention(q, kc, vc, lengths, impl="plain", **kw), 50, flush)
+    case["library_ms"] = _time_ms(library, 50, flush)
+    return case
+
+
+def _profile_decode_step(M, params, cfg, engine, steps=3):
+    """Device time of a batched decode step from a torch.profiler trace (the
+    sum of its kernels' times), against the host's wall time per step, with
+    the decode attention kernel's own share and the weight bytes a step
+    reads (every weight but the embedding table, of which it reads a row per
+    sequence)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
+    active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
+
+    def run():
+        for _ in range(steps):
+            M.decode_step(params, cfg, engine.cache, tokens, active=active)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    assert device_ms > 0, "the profiler recorded no device time"
+    launches = sum(e.count for e in kernels) / steps
+    attn = [e for e in kernels if "decode_attention_kernel" in e.key]
+    assert attn, "the trace holds no decode_attention kernel"
+    attn_ms = sum(e.self_device_time_total for e in attn) / steps / 1e3
+    attn_launches = sum(e.count for e in attn) / steps
+    weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    shares = ", ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f} ms"
+                       for e in top)
+    print(f"phase 3 decode step at batch {engine.max_batch} (profiler, {steps} steps): "
+          f"device {device_ms:.3f} ms in {launches:.0f} kernels, wall {wall_ms:.3f} ms, "
+          f"device busy {device_ms / wall_ms:.3f} of the wall time; decode_attention "
+          f"{attn_ms:.4f} ms in {attn_launches:.0f} launches; weights read "
+          f"{weight_bytes / 1e9:.3f} GB ({weight_bytes / PEAK_BYTES * 1e3:.3f} ms at "
+          f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for item in items for t in _tensors(item)]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        sys.exit(1)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.patterns import PatternEngine
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_agent_loop
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card.splitlines()[0])
+
+    # ---- phase 1: build -------------------------------------------------
+    t0 = time.time()
+    logs = _build.build()
+    regs = {n: sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
+                       if "Used " in ln}) for n, log in logs.items()}
+    print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)} "
+          f"(ptxas per instantiation: {regs})", flush=True)
+
+    # ---- phase 2: kernels against their plain versions ------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cases = {"flash_attention": [], "decode_attention": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for s, window in ((3, None), (19, None), (2048, None), (2048, 512)):
+            cases["flash_attention"].append(
+                flash_case(ops, gen, flush, 1, s, 28, 4, 128, dtype, window, timed))
+        for smax, window in ((192, None), (4096, 1024)):
+            cases["decode_attention"].append(
+                decode_case(ops, gen, flush, 4, 28, 4, 128, smax, dtype, window, timed))
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"phase 2 {name} {json.dumps(c)}", flush=True)
+
+    # ---- phase 3: full-width qwen2-7b through the speculative agent loop --
+    cfg = get_config("qwen2-7b")
+    t0 = time.time()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    print(f"phase 3 init: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{n_params / 1e9:.3f} B params {cfg.dtype} in {time.time() - t0:.1f} s", flush=True)
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=192, device="cuda")
+    pe = PatternEngine(context_len=2, min_support=3).fit(
+        episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
+    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
+    serve_agent_loop(False, cfg, engine, episodes[:1], pe, reason_tokens=1)   # warm-up
+    fa.launches = da.launches = 0
+    steps0 = engine.steps_executed
+    runs = {}
+    for spec_on in (False, True):
+        dt, steps, hits, spec = serve_agent_loop(spec_on, cfg, engine, episodes, pe)
+        runs[spec_on] = spec
+        print(f"phase 3 serve speculation={'on' if spec_on else 'off'}: {steps} decode steps "
+              f"in {dt:.3f} s ({steps / dt:.2f} steps/s, {dt / steps * 1e3:.2f} ms/step), "
+              f"admitted={spec.admitted} promotions={spec.promotions} "
+              f"preemptions={spec.preemptions} hits={hits}", flush=True)
+    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    engine_steps = engine.steps_executed - steps0
+    prefills = 2 * len(episodes) + runs[True].admitted
+    print(f"phase 3 launches: {launches} over {prefills} prefills and {engine_steps} engine steps "
+          f"of {cfg.n_layers} layers", flush=True)
+    assert runs[True].admitted > 0, "speculation admitted no slot"
+    assert launches["flash_attention"] == cfg.n_layers * prefills > 0, launches
+    assert launches["decode_attention"] == cfg.n_layers * engine_steps > 0, launches
+    _profile_decode_step(M, params, cfg, engine)
+
+    # ---- phase 4: batched slot vs standalone, kernel path vs oracle path --
+    prompt = [5, 6, 7, 8]
+    toks = torch.tensor([prompt], device="cuda")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    lg, cache = M.prefill(params, cfg, {"tokens": toks}, max_len=192)
+    lg_ref, cache_ref = M.prefill(params, ref_cfg, {"tokens": toks}, max_len=192)
+    tok = torch.argmax(lg, -1)
+    forced, toks_single, corr = [int(tok[0])], [], []
+    for _ in range(6):
+        pair = torch.stack([lg[0, :cfg.vocab_size], lg_ref[0, :cfg.vocab_size]])
+        corr.append(float(torch.corrcoef(pair)[0, 1]))
+        lg, cache = M.decode_step(params, cfg, cache, tok)
+        lg_ref, cache_ref = M.decode_step(params, ref_cfg, cache_ref, tok)
+        assert lg.shape == (1, cfg.padded_vocab) and torch.isfinite(lg[:, :cfg.vocab_size]).all()
+        tok = torch.argmax(lg, -1)
+        toks_single.append(int(tok[0]))
+        forced.append(int(tok[0]))
+    slot = engine.add_request(prompt, request_id=1)
+    toks_batched = []
+    for i in range(6):
+        engine.pending_tokens[slot] = forced[i]
+        toks_batched.append(engine.step()[slot])
+    agree = sum(a == b for a, b in zip(toks_batched, toks_single, strict=True))
+    print(f"phase 4 teacher-forced: batched {toks_batched} single {toks_single} agree {agree}/6; "
+          f"kernel-vs-oracle logit correlation min {min(corr):.6f}", flush=True)
+    assert agree >= 5, (toks_batched, toks_single)
+    assert min(corr) > 0.99, corr
+
+    # ---- phase 5: the kernels line; then the device line -----------------
+    replaces = {
+        "flash_attention": "src/repro/kernels/flash_attention.py:113",
+        "decode_attention": "src/repro/kernels/decode_attention.py:121",
+    }
+    path_case = {"flash_attention": cases["flash_attention"][1],     # S=19 speculative prefill
+                 "decode_attention": cases["decode_attention"][0]}  # (4,192,4,128) serving step
+    kernels = []
+    for name in ("flash_attention", "decode_attention"):
+        c = path_case[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in cases[name]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "at": {"shape": c["shape"], "dtype": c["dtype"]},
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

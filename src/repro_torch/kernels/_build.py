@@ -1,0 +1,77 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source ``csrc/<name>.cu`` compiles into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in ``build/`` at the root of the checkout, named by a hash of
+its source and the compiler flags: a changed source rebuilds, an unchanged
+one loads at once. A failed build raises with nvcc's output. Nothing is
+built when a module is imported, only at a kernel's first launch or when a
+caller asks for :func:`build`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("flash_attention", "decode_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every named source that is not built yet, one nvcc each, all
+    started together. Returns nvcc's output per compiled source (register
+    and shared-memory use, from ``-Xptxas -v``); raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        running[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in running.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{logs[name]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load its library."""
+    path = library_path(name)
+    if not path.exists():
+        build((name,))
+    return ctypes.CDLL(str(path))

@@ -1,0 +1,143 @@
+"""Flash-decode: the hand-written CUDA kernel and its plain PyTorch version.
+
+``decode_attention_kernel`` launches ``csrc/decode_attention.cu`` (the
+Hopper port of ``repro/kernels/decode_attention.py::decode_attention_pallas``;
+its source carries the design note). ``decode_attention_plain`` is the same
+computation in PyTorch: a loop over cache blocks with a streaming fp32
+softmax. The CPU tests run the plain version; on the card it is only the
+yardstick the kernel is held against.
+
+Layout: q (B, H, D), cache (B, Smax, KV, D), lengths (B,) -> (B, H, D) in
+q's dtype; the query attends to [0, len) or [len - window, len).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIM = 128  # the head_dim of every dense config the port serves
+MAX_GROUP = 16  # query heads per kv head the kernel holds (MAXG in the source)
+_BLOCK_K = 1024  # cache rows per step of the plain version's loop
+
+launches = 0  # kernel launches made by decode_attention_kernel; callers may reset it
+
+
+def decode_attention_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float, window: Optional[int],
+) -> torch.Tensor:
+    """Streaming decode attention in PyTorch: a loop over cache blocks."""
+    b, h, d = q.shape
+    smax, kv = k_cache.shape[1], k_cache.shape[2]
+    grp = h // kv
+    qf = (q.float() * scale).reshape(b, kv, grp, d)
+    lens = lengths.to(device=q.device, dtype=torch.int64)[:, None]
+    m = torch.full((b, kv, grp), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, kv, grp), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, grp, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, smax, _BLOCK_K):
+        kblk = k_cache[:, k0:k0 + _BLOCK_K].float()
+        vblk = v_cache[:, k0:k0 + _BLOCK_K].float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kblk)
+        kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)[None, :]
+        mask = kpos < lens
+        if window is not None:
+            mask &= kpos >= lens - window
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("decode_attention").decode_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _error_string(err: int) -> str:
+    fn = _build.load("decode_attention").decode_attention_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()
+
+
+def _check(q, k_cache, v_cache, lengths, window):
+    if not q.is_cuda:
+        raise ValueError("decode_attention_kernel runs on CUDA tensors only; "
+                         f"got a tensor on {q.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {q.dtype} not supported; use float32 or bfloat16")
+    if lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32, got {lengths.dtype}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q is on {q.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"want q (B,H,D) and caches (B,Smax,KV,D); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv or lengths.shape != (b,):
+        raise ValueError(f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and lengths "
+                         f"{tuple(lengths.shape)} do not match")
+    if d != HEAD_DIM:
+        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIM}")
+    if h // kv > MAX_GROUP:
+        raise ValueError(f"GQA group {h // kv} exceeds the kernel's {MAX_GROUP}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads "
+                             "16 bytes at a time)")
+
+
+def decode_attention_kernel(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float, window: Optional[int],
+) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream; raises on a CPU
+    tensor, on an input it does not take, or if the launch fails."""
+    global launches
+    _check(q, k_cache, v_cache, lengths, window)
+    b, h, d = q.shape
+    smax, kv = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = _kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, smax, h, kv, d, -1 if window is None else int(window),
+        float(scale), DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: {_error_string(err)}")
+    launches += 1
+    return out

@@ -1,0 +1,84 @@
+"""Plain PyTorch reference oracles for the attention kernels.
+
+The simplest correct versions (materialized score matrices), the
+counterparts of ``repro.kernels.ref``.  Kernel and model tests compare
+against them; the serving path never calls them.
+
+Layout conventions (public API, shared with ops.py):
+  q, k, v : (B, S, H, D) / (B, S, KV, D)   -- "BSHD"
+  decode q: (B, H, D), cache: (B, Smax, KV, D)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _gqa_expand(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, H, D) by repeating each kv head."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    assert n_heads % kv == 0
+    return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
+def mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain softmax attention oracle.  q (B,S,H,D), k/v (B,S,KV,D)."""
+    sq, h, d = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[1]
+    k = _gqa_expand(k, h)
+    v = _gqa_expand(v, h)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)  # right-aligned
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token decode attention oracle.
+
+    q (B, H, D); k_cache/v_cache (B, Smax, KV, D); lengths (B,) = #valid
+    tokens (the query attends to positions [0, lengths)).
+    """
+    h, d = q.shape[1], q.shape[2]
+    smax = k_cache.shape[1]
+    kk = _gqa_expand(k_cache, h)
+    vv = _gqa_expand(v_cache, h)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhd,bkhd->bhk", q, kk).float() * scale
+    kpos = torch.arange(smax, device=q.device)[None, None, :]
+    lens = lengths.to(q.device)[:, None, None]
+    mask = kpos < lens
+    if window is not None:
+        mask &= kpos >= (lens - window)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", probs.to(vv.dtype), vv)

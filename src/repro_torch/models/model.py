@@ -1,0 +1,195 @@
+"""Top-level model: init / full-sequence forward / prefill / decode.
+
+Ported: the dense family (token inputs). The MoE, SSM, hybrid, vlm and
+audio families raise NotImplementedError.
+
+Design notes
+------------
+* **per-layer weights**: ``params["blocks"]`` is a list of one dict per
+  layer (JAX stacks them on a leading L axis for ``lax.scan``); the forward
+  is a Python loop over layers. :func:`params_from_numpy` splits the
+  stacked arrays.
+* **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
+* **caches** keep the layout ``(L, B, Smax, KV, hd)`` plus ``lengths`` (B,)
+  int32; :func:`decode_step` writes the new K/V rows into them in place.
+* entry points default to ``device="cuda"``; nothing moves to the CPU
+  unless the caller asks for it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import embed_init, rms_norm
+
+_IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"family {cfg.family!r} with frontend {cfg.frontend!r} is not ported; "
+            "only the dense token family is")
+    attn_mod.check_supported(cfg)
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ======================================================================
+# Init and the numpy weight bridge
+# ======================================================================
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Dict[str, Any]:
+    """Random weights: truncated-normal fan-in for matrices, normal(0.02) for
+    the embedding and LM head, ones for norms, zeros for QKV biases. Drawn
+    from ``generator`` (a seed-0 generator on ``device`` if None)."""
+    _check_family(cfg)
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    dtype = _dtype(cfg)
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    params: Dict[str, Any] = {
+        "embed": embed_init(generator, (Vp, D), dtype=dtype, device=device),
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": embed_init(generator, (D, Vp), dtype=dtype, device=device),
+        "blocks": [],
+    }
+    for _ in range(cfg.n_layers):
+        params["blocks"].append({
+            "ln1": torch.ones((D,), dtype=dtype, device=device),
+            "ln2": torch.ones((D,), dtype=dtype, device=device),
+            "attn": attn_mod.init_attn_params(generator, cfg, dtype, device),
+            "mlp": mlp_mod.init_mlp_params(generator, cfg, dtype, device),
+        })
+    return params
+
+
+def _from_numpy(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a, order="C")            # a writable copy the tensor may own
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16: reinterpret the bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
+                      device="cuda") -> Dict[str, Any]:
+    """Convert the JAX package's params pytree, given as nested dicts of numpy
+    arrays (blocks stacked on axis 0, weights (in, out)), into this package's
+    parameters in ``cfg.dtype`` on ``device``."""
+    _check_family(cfg)
+    dtype = _dtype(cfg)
+
+    def conv(tree, index=None):
+        if isinstance(tree, Mapping):
+            return {k: conv(v, index) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return _from_numpy(a if index is None else a[index], dtype, device)
+
+    params = {k: conv(v) for k, v in np_params.items() if k != "blocks"}
+    params["blocks"] = [conv(np_params["blocks"], i) for i in range(cfg.n_layers)]
+    return params
+
+
+# ======================================================================
+# Embedding / head
+# ======================================================================
+
+def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """batch has 'tokens' (B,S) integer ids."""
+    if "embeds" in batch:
+        raise NotImplementedError("embedding frontends (vlm/audio) are not ported")
+    return params["embed"][batch["tokens"]]
+
+
+def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Final norm + LM head; padded vocab tail masked to -1e30.  fp32 out."""
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h @ params["lm_head"]).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+        logits = torch.where(mask, logits, -1e30)
+    return logits
+
+
+# ======================================================================
+# Full-sequence forward
+# ======================================================================
+
+def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss scalar)."""
+    _check_family(cfg)
+    impl = _IMPLS[cfg.attn_impl]
+    h = embed_inputs(params, cfg, batch)
+    for blk in params["blocks"]:
+        h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
+                                      cfg, impl=impl)
+        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
+    return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
+
+
+# ======================================================================
+# Cache init / prefill / decode
+# ======================================================================
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
+    _check_family(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    smax = min(max_len, cfg.sliding_window) if cfg.sliding_window is not None else max_len
+    shape = (cfg.n_layers, batch, smax, KV, hd)
+    return {
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+    }
+
+
+def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt; returns (last-position logits (B,Vp), filled cache)."""
+    _check_family(cfg)
+    impl = _IMPLS[cfg.attn_impl]
+    h = embed_inputs(params, cfg, batch)
+    b, s, _ = h.shape
+    cache = init_cache(cfg, b, max_len, device=h.device)
+    cache["lengths"].fill_(s)
+    smax = cache["k"].shape[2]
+    for i, blk in enumerate(params["blocks"]):
+        x = rms_norm(h, blk["ln1"], cfg.norm_eps)
+        o, cache["k"][i], cache["v"][i] = attn_mod.attn_prefill(blk["attn"], x, cfg, smax,
+                                                                impl=impl)
+        h = h + o
+        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
+    return lm_logits(params, cfg, h[:, -1]), cache
+
+
+def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.Tensor,
+                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step.  tokens (B,) -> (logits (B,Vp) fp32, new cache).
+
+    The new cache shares ``cache``'s K/V tensors, whose rows at each length
+    are written in place. With the bool mask ``active`` (B,), inactive
+    sequences keep their K/V rows and their lengths."""
+    _check_family(cfg)
+    impl = _IMPLS[cfg.attn_impl]
+    lengths = cache["lengths"]
+    h = params["embed"][tokens][:, None, :]             # (B,1,D)
+    for i, blk in enumerate(params["blocks"]):
+        x = rms_norm(h, blk["ln1"], cfg.norm_eps)
+        h = h + attn_mod.attn_decode(blk["attn"], x, cache["k"][i], cache["v"][i], lengths,
+                                     cfg, impl=impl, active=active)
+        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
+    step = 1 if active is None else active.to(torch.int32)
+    new_cache = {"lengths": lengths + step, "k": cache["k"], "v": cache["v"]}
+    return lm_logits(params, cfg, h[:, 0]), new_cache

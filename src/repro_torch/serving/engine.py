@@ -1,0 +1,137 @@
+"""Batched decode engine with slot management (continuous batching).
+
+The engine owns a fixed-capacity batched KV cache; requests occupy
+*slots*.  Free slots are the serving-side analogue of the paper's "slack
+resources": B-PASTE admits speculative sequences into them, preempts by
+dropping a slot at the next decode-step boundary (one step = the preemption
+granularity on an accelerator), and promotes by re-tagging a slot
+authoritative — zero-copy, KV rows are slot-stable.
+
+Unlike the JAX engine, which masks the whole cache with ``jnp.where`` after
+every step and rewrites the whole cache tree when it admits a request, this
+engine updates the cache in place: a step writes only the new K/V rows of
+active slots (inactive slots keep their rows and lengths), and
+``add_request`` copies the prefilled cache into its slot's rows.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as model_mod
+
+
+@dataclass
+class Slot:
+    idx: int
+    request_id: Optional[int] = None
+    speculative: bool = False
+    eu: float = 0.0
+    tokens: List[int] = field(default_factory=list)
+    active: bool = False
+    done: bool = False
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        max_batch: int = 8,
+        max_len: int = 1024,
+        eos_id: int = 1,
+        device="cuda",
+    ):
+        self.device = torch.device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['embed'].device}, engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.cache = model_mod.init_cache(cfg, max_batch, max_len, device=self.device)
+        self.slots = [Slot(i) for i in range(max_batch)]
+        self.pending_tokens = np.zeros((max_batch,), np.int32)
+        self.steps_executed = 0
+        self.spec_steps_executed = 0
+
+    # ------------------------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return [s.idx for s in self.slots if not s.active]
+
+    def slack(self) -> int:
+        """Idle batch capacity = the engine's slack resource."""
+        return len(self.free_slots())
+
+    @torch.no_grad()
+    def add_request(
+        self, prompt: List[int], *, request_id: int, speculative: bool = False,
+        eu: float = 0.0,
+    ) -> Optional[int]:
+        free = self.free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        s = self.slots[slot]
+        s.request_id = request_id
+        s.speculative = speculative
+        s.eu = eu
+        s.tokens = list(prompt)
+        s.active = True
+        s.done = False
+        toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
+        logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
+                                           self.max_len)
+        self.cache["k"][:, slot].copy_(cache1["k"][:, 0])
+        self.cache["v"][:, slot].copy_(cache1["v"][:, 0])
+        self.cache["lengths"][slot] = len(prompt)
+        self.pending_tokens[slot] = int(torch.argmax(logits[0]))
+        return slot
+
+    def preempt(self, slot: int):
+        """Reclaim a speculative slot at a step boundary (drop, zero-copy)."""
+        s = self.slots[slot]
+        assert s.speculative, "authoritative slots are never preempted"
+        s.active = False
+        s.request_id = None
+
+    def promote(self, slot: int, request_id: int):
+        """Speculative -> authoritative (non-preemptible), zero-copy."""
+        s = self.slots[slot]
+        s.speculative = False
+        s.request_id = request_id
+        s.eu = float("inf")
+
+    @torch.no_grad()
+    def step(self) -> Dict[int, int]:
+        """One batched decode step; returns {slot: new_token} for active slots."""
+        active = np.array([s.active and not s.done for s in self.slots])
+        if not active.any():
+            return {}
+        tokens = torch.as_tensor(self.pending_tokens, dtype=torch.int64).to(self.device)
+        active_t = torch.as_tensor(active).to(self.device)
+        logits, self.cache = model_mod.decode_step(self.params, self.cfg, self.cache, tokens,
+                                                   active=active_t)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        out: Dict[int, int] = {}
+        self.steps_executed += 1
+        self.spec_steps_executed += int(
+            sum(1 for s in self.slots if s.active and s.speculative)
+        )
+        for s in self.slots:
+            if not (s.active and not s.done):
+                continue
+            tok = int(nxt[s.idx])
+            s.tokens.append(int(self.pending_tokens[s.idx]))
+            self.pending_tokens[s.idx] = tok
+            out[s.idx] = tok
+            if tok == self.eos_id or len(s.tokens) >= self.max_len - 1:
+                s.done = True
+                s.active = False
+        return out

@@ -1,0 +1,79 @@
+"""Hygiene of the PyTorch port (src/repro_torch/).
+
+* It imports without JAX and loads nothing of the JAX package.
+* Its copies of the framework-free modules stay equal to the originals in
+  src/repro/ outside their import lines (a drift guard).
+* It calls no library attention and no torch.compile.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+COPIED = [
+    "core/events.py",
+    "core/sandbox.py",
+    "core/executor.py",
+    "core/workload.py",
+    "core/mining/prefixspan.py",
+    "core/patterns.py",
+    "core/hypothesis.py",
+    "serving/spec_serving.py",
+] + sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py"))
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(SRC).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_port_imports_without_jax_or_repro():
+    code = (
+        "import json, sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"mods = {_port_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules\n"
+        "                        if k == 'repro' or k.startswith('repro.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def _rewrite_imports(text: str) -> str:
+    out = []
+    for line in text.splitlines(keepends=True):
+        if line.startswith("from repro.") or line.startswith("import repro."):
+            line = line.replace("repro.", "repro_torch.", 1)
+        out.append(line)
+    return "".join(out)
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_matches_original(rel):
+    original = (SRC / "repro" / rel).read_text()
+    copy = (PORT / rel).read_text()
+    assert copy == _rewrite_imports(original), (
+        f"src/repro_torch/{rel} drifted from src/repro/{rel} outside its import lines")
+
+
+@pytest.mark.parametrize("banned", ["scaled_dot_product_attention", "torch.compile",
+                                    "import jax", "from jax", "from repro.", "import repro."])
+def test_port_uses_no_library_attention_or_jax(banned):
+    hits = [str(p.relative_to(SRC)) for p in PORT.rglob("*")
+            if p.suffix in (".py", ".cu", ".cuh") and banned in p.read_text()]
+    assert hits == [], f"{banned!r} found in {hits}"
