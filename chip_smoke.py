@@ -6,16 +6,22 @@
 Phases, one line of output each (or more):
   1. the card's name and power limit (nvidia-smi), then the build of the
      hand-written CUDA kernels from src/repro_torch/kernels/csrc;
-  2. each kernel against its plain PyTorch version (bf16 at 2e-2, f32 at
-     2e-5) at the serving path's shapes and at long shapes, with its time,
-     the plain version's time, the time of one library call computing the
-     same function (scaled_dot_product_attention, a yardstick the port never
-     calls) and the least time the card could take (bound);
-  3. full-width qwen2-7b (28 layers, bf16, random weights from a seed)
-     served by the speculative agent loop, speculation off then on, with
-     the kernels' launch counts over that run;
-  4. a batched engine slot against a standalone prefill + decode at full
-     width, teacher-forced, and the kernel path against the oracle path;
+  2. each kernel against its plain PyTorch version (attention: bf16 at
+     2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
+     serving paths' shapes and at long shapes, with its time, the plain
+     version's time, the time of one library call computing the same
+     function (scaled_dot_product_attention for attention, a yardstick the
+     port never calls; no single PyTorch call computes the SSD scan) and
+     the least time the card could take (bound);
+  3. each serving path at full width (bf16, random weights from a seed)
+     through the speculative agent loop, speculation off then on, with the
+     kernels' launch counts over that run and the profiles of a batched
+     decode step and of a 19-token prefill: qwen2-7b (28 layers; flash and
+     decode attention), then mamba2-2.7b (64 layers; the SSD scan in every
+     prefill);
+  4. after each model's run, a batched engine slot against a standalone
+     prefill + decode at full width, teacher-forced, and the kernel path
+     against the oracle path;
   5. one JSON line on the kernels; last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
@@ -34,6 +40,7 @@ SEED = 0
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense: tensor bf16, fp32 FMA
 PEAK_BYTES = 3.35e12                                            # H100 SXM HBM3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-4}  # tests/test_kernels.py's SSD tolerance
 L2_FLUSH_BYTES = 128 << 20      # larger than the 50 MB L2: each timed call starts cold
 
 
@@ -73,9 +80,9 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _check(name, got, want, dtype):
+def _check(name, got, want, dtype, tols=TOL):
     err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype]
+    tol = tols[dtype]
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
         raise AssertionError(f"{name}: kernel and plain version disagree, max abs err {err}")
     return err
@@ -156,47 +163,97 @@ def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
     return case
 
 
-def _profile_decode_step(M, params, cfg, engine, steps=3):
-    """Device time of a batched decode step from a torch.profiler trace (the
-    sum of its kernels' times), against the host's wall time per step, with
-    the decode attention kernel's own share and the weight bytes a step
-    reads (every weight but the embedding table, of which it reads a row per
-    sequence)."""
+def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = torch.empty((b, s, h), device="cuda").uniform_(0.001, 0.1, generator=gen)
+    A = -torch.empty((h,), device="cuda").uniform_(1.0, 16.0, generator=gen)
+    B = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    D = torch.randn((h,), generator=gen, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_h0 else None
+    args = (x, dt, A, B, C, D)
+    want_y, want_h = ops.ssd_scan(*args, impl="plain", initial_state=h0)
+    got_y, got_h = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    torch.cuda.synchronize()
+    name = f"ssd_scan {[b, s, h, p, g, n]} h0 {with_h0}"
+    case = {"shape": [b, s, h, p, g, n], "dtype": str(dtype).split(".")[1], "h0": with_h0,
+            "max_abs_err": max(_check(f"{name} y", got_y, want_y, dtype, SSD_TOL),
+                               _check(f"{name} state", got_h, want_h, dtype, SSD_TOL))}
+    if not timed:
+        return case
+    # operations per chunk and head with q valid rows: C B^T and its product
+    # with x (2 q^2 N + 2 q^2 P), the inter-chunk term and the state update (4 q N P)
+    rows = [min(128, s - c0) for c0 in range(0, s, 128)]
+    flops = b * h * sum(2 * q * q * n + 2 * q * q * p + 4 * q * n * p for q in rows)
+    n_bytes = _nbytes(*args, got_y, got_h) + (_nbytes(h0) if with_h0 else 0)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, flops, dtype)
+    iters = 20 if s > 512 else 50
+    case["ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="kernel", initial_state=h0),
+                          iters, flush)
+    case["plain_ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="plain", initial_state=h0),
+                                iters, flush)
+    case["library_ms"] = None   # no single PyTorch call computes the SSD scan
+    return case
+
+
+def _profile(label, run, calls, kernel, weight_bytes):
+    """Device time of one call from a torch.profiler trace (the sum of its
+    kernels' times) over ``run``, which makes ``calls`` calls and
+    synchronises, against the host's wall time per call, with the named
+    kernel's own share and the weight bytes a call reads (every weight but
+    the embedding table, of which it reads a row per token)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
-    active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
-
-    def run():
-        for _ in range(steps):
-            M.decode_step(params, cfg, engine.cache, tokens, active=active)
-        torch.cuda.synchronize()
 
     run()
     t0 = time.perf_counter()
     run()
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    wall_ms = (time.perf_counter() - t0) / calls * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    device_ms = sum(e.self_device_time_total for e in kernels) / calls / 1e3
     assert device_ms > 0, "the profiler recorded no device time"
-    launches = sum(e.count for e in kernels) / steps
-    attn = [e for e in kernels if "decode_attention_kernel" in e.key]
-    assert attn, "the trace holds no decode_attention kernel"
-    attn_ms = sum(e.self_device_time_total for e in attn) / steps / 1e3
-    attn_launches = sum(e.count for e in attn) / steps
-    weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
+    launches = sum(e.count for e in kernels) / calls
+    own = ""
+    if kernel is not None:
+        mine = [e for e in kernels if f"{kernel}_kernel" in e.key]
+        assert mine, f"the trace holds no {kernel} kernel"
+        own = (f"; {kernel} {sum(e.self_device_time_total for e in mine) / calls / 1e3:.4f} ms "
+               f"in {sum(e.count for e in mine) / calls:.0f} launches")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    shares = ", ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f} ms"
+    shares = ", ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms"
                        for e in top)
-    print(f"phase 3 decode step at batch {engine.max_batch} (profiler, {steps} steps): "
-          f"device {device_ms:.3f} ms in {launches:.0f} kernels, wall {wall_ms:.3f} ms, "
-          f"device busy {device_ms / wall_ms:.3f} of the wall time; decode_attention "
-          f"{attn_ms:.4f} ms in {attn_launches:.0f} launches; weights read "
+    print(f"phase 3 {label} (profiler, {calls} calls): device {device_ms:.3f} ms in "
+          f"{launches:.0f} kernels, wall {wall_ms:.3f} ms, device busy "
+          f"{device_ms / wall_ms:.3f} of the wall time{own}; weights read "
           f"{weight_bytes / 1e9:.3f} GB ({weight_bytes / PEAK_BYTES * 1e3:.3f} ms at "
           f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
+
+
+def _profile_steps(M, params, cfg, engine, decode_kernel, prefill_kernel, calls=3):
+    """Profile a batched decode step (all slots active) and the prefill of a
+    19-token prompt, the length of a speculative observation. A Mamba2
+    decode step runs none of this repository's kernels."""
+    weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
+    tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
+    active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
+    prompt = torch.arange(2, 21, device="cuda")[None]
+
+    def decode():
+        for _ in range(calls):
+            M.decode_step(params, cfg, engine.cache, tokens, active=active)
+        torch.cuda.synchronize()
+
+    def prefill():
+        for _ in range(calls):
+            M.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len)
+        torch.cuda.synchronize()
+
+    _profile(f"{cfg.name} decode step at batch {engine.max_batch}", decode, calls,
+             decode_kernel, weight_bytes)
+    _profile(f"{cfg.name} prefill of {prompt.shape[1]} tokens", prefill, calls,
+             prefill_kernel, weight_bytes)
 
 
 def _tensors(tree):
@@ -206,54 +263,11 @@ def _tensors(tree):
     return [t for item in items for t in _tensors(item)]
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
-        sys.exit(1)
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(root, "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.core.patterns import PatternEngine
-    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import serve_agent_loop
-    from repro_torch.models import model as M
-    from repro_torch.serving.engine import ServingEngine
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card.splitlines()[0])
-
-    # ---- phase 1: build -------------------------------------------------
-    t0 = time.time()
-    logs = _build.build()
-    regs = {n: sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
-                       if "Used " in ln}) for n, log in logs.items()}
-    print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)} "
-          f"(ptxas per instantiation: {regs})", flush=True)
-
-    # ---- phase 2: kernels against their plain versions ------------------
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    cases = {"flash_attention": [], "decode_attention": []}
-    for dtype in (torch.bfloat16, torch.float32):
-        timed = dtype == torch.bfloat16
-        for s, window in ((3, None), (19, None), (2048, None), (2048, 512)):
-            cases["flash_attention"].append(
-                flash_case(ops, gen, flush, 1, s, 28, 4, 128, dtype, window, timed))
-        for smax, window in ((192, None), (4096, 1024)):
-            cases["decode_attention"].append(
-                decode_case(ops, gen, flush, 4, 28, 4, 128, smax, dtype, window, timed))
-    for name, cs in cases.items():
-        for c in cs:
-            print(f"phase 2 {name} {json.dumps(c)}", flush=True)
-
-    # ---- phase 3: full-width qwen2-7b through the speculative agent loop --
-    cfg = get_config("qwen2-7b")
+def serve_model(M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters, kernels):
+    """Phase 3 for one model: init at full width, warm up, then serve the
+    episodes with speculation off and on, the kernels' counts set to 0 just
+    before and read just after; then profile a decode step and a prefill
+    (``kernels``: the repository's kernel in each, or None)."""
     t0 = time.time()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
@@ -261,31 +275,32 @@ def main():
     print(f"phase 3 init: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{n_params / 1e9:.3f} B params {cfg.dtype} in {time.time() - t0:.1f} s", flush=True)
     engine = ServingEngine(cfg, params, max_batch=4, max_len=192, device="cuda")
-    pe = PatternEngine(context_len=2, min_support=3).fit(
-        episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
-    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
     serve_agent_loop(False, cfg, engine, episodes[:1], pe, reason_tokens=1)   # warm-up
-    fa.launches = da.launches = 0
+    for mod in counters.values():
+        mod.launches = 0
     steps0 = engine.steps_executed
     runs = {}
     for spec_on in (False, True):
         dt, steps, hits, spec = serve_agent_loop(spec_on, cfg, engine, episodes, pe)
         runs[spec_on] = spec
-        print(f"phase 3 serve speculation={'on' if spec_on else 'off'}: {steps} decode steps "
-              f"in {dt:.3f} s ({steps / dt:.2f} steps/s, {dt / steps * 1e3:.2f} ms/step), "
-              f"admitted={spec.admitted} promotions={spec.promotions} "
-              f"preemptions={spec.preemptions} hits={hits}", flush=True)
-    launches = {"flash_attention": fa.launches, "decode_attention": da.launches}
+        print(f"phase 3 {cfg.name} serve speculation={'on' if spec_on else 'off'}: {steps} "
+              f"decode steps in {dt:.3f} s ({steps / dt:.2f} steps/s, "
+              f"{dt / steps * 1e3:.2f} ms/step), admitted={spec.admitted} "
+              f"promotions={spec.promotions} preemptions={spec.preemptions} hits={hits}",
+              flush=True)
+    launches = {name: mod.launches for name, mod in counters.items()}
     engine_steps = engine.steps_executed - steps0
     prefills = 2 * len(episodes) + runs[True].admitted
-    print(f"phase 3 launches: {launches} over {prefills} prefills and {engine_steps} engine steps "
-          f"of {cfg.n_layers} layers", flush=True)
+    print(f"phase 3 {cfg.name} launches: {launches} over {prefills} prefills and "
+          f"{engine_steps} engine steps of {cfg.n_layers} layers", flush=True)
     assert runs[True].admitted > 0, "speculation admitted no slot"
-    assert launches["flash_attention"] == cfg.n_layers * prefills > 0, launches
-    assert launches["decode_attention"] == cfg.n_layers * engine_steps > 0, launches
-    _profile_decode_step(M, params, cfg, engine)
+    _profile_steps(M, params, cfg, engine, *kernels)
+    return params, engine, launches, prefills, engine_steps
 
-    # ---- phase 4: batched slot vs standalone, kernel path vs oracle path --
+
+def check_model(M, cfg, params, engine):
+    """Phase 4 for one model: a batched slot against a standalone prefill +
+    decode, teacher-forced, and the kernel path against the oracle path."""
     prompt = [5, 6, 7, 8]
     toks = torch.tensor([prompt], device="cuda")
     ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
@@ -308,20 +323,104 @@ def main():
         engine.pending_tokens[slot] = forced[i]
         toks_batched.append(engine.step()[slot])
     agree = sum(a == b for a, b in zip(toks_batched, toks_single, strict=True))
-    print(f"phase 4 teacher-forced: batched {toks_batched} single {toks_single} agree {agree}/6; "
-          f"kernel-vs-oracle logit correlation min {min(corr):.6f}", flush=True)
+    print(f"phase 4 {cfg.name} teacher-forced: batched {toks_batched} single {toks_single} "
+          f"agree {agree}/6; kernel-vs-oracle logit correlation min {min(corr):.6f}", flush=True)
     assert agree >= 5, (toks_batched, toks_single)
     assert min(corr) > 0.99, corr
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        sys.exit(1)
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.patterns import PatternEngine
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.serve import serve_agent_loop
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card.splitlines()[0])
+
+    # ---- phase 1: build -------------------------------------------------
+    t0 = time.time()
+    logs = _build.build()
+    regs = {n: sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
+                       if "Used " in ln}) for n, log in logs.items()}
+    print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)} "
+          f"(ptxas per instantiation: {regs})", flush=True)
+
+    # ---- phase 2: kernels against their plain versions ------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cases = {"flash_attention": [], "decode_attention": [], "ssd_scan": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for s, window in ((3, None), (19, None), (2048, None), (2048, 512)):
+            cases["flash_attention"].append(
+                flash_case(ops, gen, flush, 1, s, 28, 4, 128, dtype, window, timed))
+        for smax, window in ((192, None), (4096, 1024)):
+            cases["decode_attention"].append(
+                decode_case(ops, gen, flush, 4, 28, 4, 128, smax, dtype, window, timed))
+        # mamba2-2.7b's prompts of 3 and 19 tokens, a ragged second chunk with
+        # an initial state over two groups, and a long prompt
+        for s, g, with_h0, timed_ssd in ((3, 1, False, False), (19, 1, False, timed),
+                                         (130, 2, True, False), (2048, 1, False, timed)):
+            cases["ssd_scan"].append(
+                ssd_case(ops, gen, flush, 1, s, 80, 64, g, 128, dtype, with_h0, timed_ssd))
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"phase 2 {name} {json.dumps(c)}", flush=True)
+
+    # ---- phases 3-4: each serving path at full width ----------------------
+    pe = PatternEngine(context_len=2, min_support=3).fit(
+        episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
+    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
+    counters = {"flash_attention": fa, "decode_attention": da, "ssd_scan": ssd}
+    launches = {}
+
+    cfg = get_config("qwen2-7b")
+    params, engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters,
+        ("decode_attention", "flash_attention"))
+    assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
+    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
+    assert counts["ssd_scan"] == 0, counts
+    launches["flash_attention"] = counts["flash_attention"]
+    launches["decode_attention"] = counts["decode_attention"]
+    check_model(M, cfg, params, engine)
+    del params, engine
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-2.7b")
+    params, engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters, (None, "ssd_scan"))
+    assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
+    assert counts["flash_attention"] == counts["decode_attention"] == 0, counts
+    launches["ssd_scan"] = counts["ssd_scan"]
+    check_model(M, cfg, params, engine)
 
     # ---- phase 5: the kernels line; then the device line -----------------
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:113",
         "decode_attention": "src/repro/kernels/decode_attention.py:121",
+        "ssd_scan": "src/repro/kernels/ssd_scan.py:122",
     }
     path_case = {"flash_attention": cases["flash_attention"][1],     # S=19 speculative prefill
-                 "decode_attention": cases["decode_attention"][0]}  # (4,192,4,128) serving step
+                 "decode_attention": cases["decode_attention"][0],  # (4,192,4,128) serving step
+                 "ssd_scan": cases["ssd_scan"][1]}                  # S=19 speculative prefill
     kernels = []
-    for name in ("flash_attention", "decode_attention"):
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
         c = path_case[name]
         kernels.append({
             "name": name, "route": "cuda",

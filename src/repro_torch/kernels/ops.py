@@ -1,24 +1,28 @@
-"""Public attention entry points with implementation dispatch.
+"""Public attention and SSD entry points with implementation dispatch.
 
 impl selection:
   'auto'   -> the hand-written CUDA kernel for a CUDA tensor (it runs or
               raises; nothing falls back), the plain version for a CPU tensor
   'kernel' -> the CUDA kernel; raises for a CPU tensor
-  'plain'  -> the plain PyTorch version beside the kernel (streaming softmax)
-  'ref'    -> the materialized oracle from ref.py
+  'plain'  -> the plain PyTorch version beside the kernel (streaming softmax,
+              chunked SSD)
+  'ref'    -> the materialized or sequential oracle from ref.py
 
 Signatures and layouts follow ``repro.kernels.ops``: BSHD for prefill,
-q (B,H,D) against a (B,Smax,KV,D) cache for decode.
+q (B,H,D) against a (B,Smax,KV,D) cache for decode, x (B,S,H,P) with
+B/C (B,S,G,N) for the SSD scan. ``ssm_decode_step`` is plain PyTorch: the
+JAX package computes it outside any Pallas kernel too.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 IMPLS = ("auto", "kernel", "plain", "ref")
 
@@ -72,3 +76,39 @@ def decode_attention(
             q, k_cache, v_cache, lengths, scale=scale, window=window)
     return _da.decode_attention_kernel(
         q, k_cache, v_cache, lengths, scale=scale, window=window)
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 128,
+    impl: str = "auto",
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD. Returns (y (B,S,H,P), final_state (B,H,P,N) fp32)."""
+    impl = _resolve(impl, x)
+    if impl == "ref":
+        return _ref.ssd_reference(x, dt, A, B, C, D, initial_state=initial_state)
+    if impl == "plain":
+        return _ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
+    return _ssd.ssd_scan_kernel(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
+
+
+def ssm_decode_step(x, dt, A, B, C, D, state):
+    """One recurrent SSM step (decode).  x (B,H,P), dt (B,H), B/C (B,G,N),
+    state (B,H,P,N) fp32 -> (y (B,H,P) in x's dtype, new_state fp32)."""
+    h = x.shape[1]
+    g = B.shape[1]
+    Bh = torch.repeat_interleave(B.float(), h // g, dim=1)
+    Ch = torch.repeat_interleave(C.float(), h // g, dim=1)
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A[None, :])
+    upd = dtf[..., None, None] * xf[..., :, None] * Bh[:, :, None, :]
+    new_state = decay[..., None, None] * state + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch) + D[None, :, None] * xf
+    return y.to(x.dtype), new_state

@@ -1,16 +1,17 @@
-"""Plain PyTorch reference oracles for the attention kernels.
+"""Plain PyTorch reference oracles for the attention and SSD kernels.
 
-The simplest correct versions (materialized score matrices), the
-counterparts of ``repro.kernels.ref``.  Kernel and model tests compare
-against them; the serving path never calls them.
+The simplest correct versions (materialized score matrices, a sequential
+SSM recurrence), the counterparts of ``repro.kernels.ref``.  Kernel and
+model tests compare against them; the serving path never calls them.
 
 Layout conventions (public API, shared with ops.py):
   q, k, v : (B, S, H, D) / (B, S, KV, D)   -- "BSHD"
   decode q: (B, H, D), cache: (B, Smax, KV, D)
+  SSD     : x (B, S, H, P), dt (B, S, H), B/C (B, S, G, N), state (B, H, P, N)
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,3 +83,37 @@ def decode_attention_reference(
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", probs.to(vv.dtype), vv)
+
+
+def ssd_reference(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential Mamba2 SSD recurrence oracle, in float32.
+
+    x (B,S,H,P), dt (B,S,H) (post-softplus), A (H,) (negative), B/C (B,S,G,N),
+    D (H,).  Heads are grouped: head h reads group h // (H/G).
+    Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) float32).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    reps = h // g
+    Bh = torch.repeat_interleave(B.float(), reps, dim=2)   # (B,S,H,N)
+    Ch = torch.repeat_interleave(C.float(), reps, dim=2)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * Af[None, :])                              # (B,H)
+        upd = dtf[:, t, :, None, None] * xf[:, t, :, :, None] * Bh[:, t, :, None, :]
+        state = decay[..., None, None] * state + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, dim=1) + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state

@@ -1,0 +1,164 @@
+"""Mamba2 SSD chunked scan: the hand-written CUDA kernel and its plain PyTorch version.
+
+``ssd_scan_kernel`` launches ``csrc/ssd_scan.cu`` (the Hopper port of
+``repro/kernels/ssd_scan.py::ssd_scan_pallas``; its source carries the
+design note). ``ssd_scan_plain`` is the same computation in PyTorch, the
+port of ``repro.kernels.ops._jnp_ssd_chunked``: per chunk the quadratic
+intra-chunk part and the chunk's end state, then a sequential pass of the
+state over chunks. The CPU tests run the plain version; on the card it is
+only the yardstick the kernel is held against.
+
+Layout: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, B/C (B,S,G,N), D (H,) f32,
+optional initial state (B,H,P,N) f32 -> (y (B,S,H,P) in x's dtype,
+final state (B,H,P,N) f32). Head h reads group h // (H/G).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIM = 64          # P: mamba2-2.7b's and zamba2-1.2b's SSM head_dim
+D_STATES = (64, 128)   # N: zamba2-1.2b's and mamba2-2.7b's d_state
+CHUNK = 128            # the configs' chunk length
+
+launches = 0  # kernel launches made by ssd_scan_kernel; callers may reset it
+
+
+def ssd_scan_plain(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: torch.Tensor, *, chunk: int,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD in PyTorch, float32 throughout (heads grouped, never
+    repeated over a group)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunked(a, *tail):
+        a = torch.nn.functional.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.reshape(b, nc, chunk, *tail)
+
+    xf = chunked(x, g, r, p)                              # (b,c,Q,g,r,p)
+    dtf = chunked(dt, g, r)                               # (b,c,Q,g,r)
+    Bf = chunked(B, g, n)                                 # (b,c,Q,g,n)
+    Cf = chunked(C, g, n)
+    cs = torch.cumsum(dtf * A.float().reshape(g, r), dim=2)   # inclusive, within chunk
+    # --- intra-chunk (quadratic, attention-like) ---
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    diff = cs[:, :, :, None] - cs[:, :, None, :]          # (b,c,i,j,g,r)
+    L = torch.exp(diff.masked_fill(~causal[:, :, None, None], float("-inf")))
+    cb = torch.einsum("bcign,bcjgn->bcijg", Cf, Bf)
+    scores = cb[..., None] * L * dtf[:, :, None]
+    y = torch.einsum("bcijgr,bcjgrp->bcigrp", scores, xf)
+    # --- per-chunk end states ---
+    w = torch.exp(cs[:, :, -1:] - cs) * dtf               # (b,c,Q,g,r)
+    s_c = torch.einsum("bcjgr,bcjgn,bcjgrp->bcgrnp", w, Bf, xf)
+    decay = torch.exp(cs[:, :, -1])                       # (b,c,g,r)
+    # --- inter-chunk state passing (sequential over chunks) ---
+    state = (initial_state.float().transpose(-1, -2).reshape(b, g, r, n, p)
+             if initial_state is not None
+             else torch.zeros((b, g, r, n, p), dtype=torch.float32, device=x.device))
+    h_in = []
+    for c in range(nc):
+        h_in.append(state)                                # the state entering chunk c
+        state = decay[:, c, ..., None, None] * state + s_c[:, c]
+    h_in = torch.stack(h_in, dim=1)                       # (b,c,g,r,n,p)
+    y = y + torch.einsum("bcign,bcgrnp->bcigrp", Cf, h_in) * torch.exp(cs)[..., None]
+    y = y.reshape(b, nc * chunk, h, p)[:, :s] + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state.reshape(b, h, n, p).transpose(-1, -2).contiguous()
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("ssd_scan").ssd_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _error_string(err: int) -> str:
+    fn = _build.load("ssd_scan").ssd_scan_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()
+
+
+def _check(x, dt, A, B, C, D, chunk, initial_state):
+    if not x.is_cuda:
+        raise ValueError("ssd_scan_kernel runs on CUDA tensors only; "
+                         f"got a tensor on {x.device}")
+    named = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "D": D}
+    if initial_state is not None:
+        named["initial_state"] = initial_state
+    for name, t in named.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {x.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {x.dtype} not supported; use float32 or bfloat16")
+    for name in ("B", "C"):
+        if named[name].dtype != x.dtype:
+            raise ValueError(f"{name} is {named[name].dtype}, x is {x.dtype}")
+    for name in ("dt", "A", "D", "initial_state"):
+        if name in named and named[name].dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {named[name].dtype}")
+    if x.dim() != 4 or B.dim() != 4 or B.shape != C.shape:
+        raise ValueError(f"want x (B,S,H,P) and B/C (B,S,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if (B.shape[:2] != (b, s) or dt.shape != (b, s, h) or A.shape != (h,) or D.shape != (h,)
+            or g < 1 or h % g):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
+                         f"B/C {tuple(B.shape)} and D {tuple(D.shape)} do not match")
+    if initial_state is not None and initial_state.shape != (b, h, p, n):
+        raise ValueError(f"initial_state is {tuple(initial_state.shape)}, want {(b, h, p, n)}")
+    if p != HEAD_DIM:
+        raise ValueError(f"head_dim P={p} not supported; the kernel is built for {HEAD_DIM}")
+    if n not in D_STATES:
+        raise ValueError(f"d_state N={n} not supported; the kernel is built for {D_STATES}")
+    if chunk != CHUNK:
+        raise ValueError(f"chunk {chunk} not supported; the kernel is built for {CHUNK}")
+    for name in ("B", "C"):
+        if named[name].data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads "
+                             "16 bytes at a time)")
+
+
+def ssd_scan_kernel(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: torch.Tensor, *, chunk: int,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on PyTorch's current stream; raises on a CPU
+    tensor, on an input it does not take, or if the launch fails."""
+    global launches
+    _check(x, dt, A, B, C, D, chunk, initial_state)
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    y = torch.empty_like(x)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    err = _kernel()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        0 if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
+        final.data_ptr(), b, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"ssd_scan kernel launch failed: {_error_string(err)}")
+    launches += 1
+    return y, final

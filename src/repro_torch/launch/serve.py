@@ -2,9 +2,13 @@
 
 An agent loop whose reasoning steps decode on the ServingEngine while tool
 calls run on the host; B-PASTE speculates future branches into free batch
-slots. Runs on the GPU unless ``--device cpu`` is given:
+slots. Serves the dense family (qwen2-7b, the default) and the Mamba2
+family (mamba2-2.7b) unchanged: the engine copies whichever cache leaves
+the model's prefill returns. Runs on the GPU unless ``--device cpu`` is
+given:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --episodes 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --episodes 3
 
 ``main`` mirrors ``repro.launch.serve`` (a reduced model; the loop there
 admits no speculative slot). :func:`serve_agent_loop` is the loop that

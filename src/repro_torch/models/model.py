@@ -1,7 +1,7 @@
 """Top-level model: init / full-sequence forward / prefill / decode.
 
-Ported: the dense family (token inputs). The MoE, SSM, hybrid, vlm and
-audio families raise NotImplementedError.
+Ported: the dense and the SSM (Mamba2) families, with token inputs. The
+MoE, hybrid, vlm and audio families raise NotImplementedError.
 
 Design notes
 ------------
@@ -10,8 +10,10 @@ Design notes
   is a Python loop over layers. :func:`params_from_numpy` splits the
   stacked arrays.
 * **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
-* **caches** keep the layout ``(L, B, Smax, KV, hd)`` plus ``lengths`` (B,)
-  int32; :func:`decode_step` writes the new K/V rows into them in place.
+* **caches** keep the JAX package's layouts: ``k``/``v`` ``(L, B, Smax, KV,
+  hd)`` for the dense family, ``ssm_state`` = (conv_x, conv_B, conv_C, ssm)
+  stacked on a leading L axis for the SSM family, plus ``lengths`` (B,)
+  int32. :func:`decode_step` updates them in place.
 * entry points default to ``device="cuda"``; nothing moves to the CPU
   unless the caller asks for it.
 """
@@ -25,17 +27,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import embed_init, rms_norm
 
 _IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "tokens":
+    if cfg.family not in ("dense", "ssm") or cfg.frontend != "tokens":
         raise NotImplementedError(
             f"family {cfg.family!r} with frontend {cfg.frontend!r} is not ported; "
-            "only the dense token family is")
-    attn_mod.check_supported(cfg)
+            "only the dense and ssm token families are")
+    if cfg.family == "dense":
+        attn_mod.check_supported(cfg)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -64,6 +68,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "blocks": [],
     }
     for _ in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            params["blocks"].append({
+                "ln": torch.ones((D,), dtype=dtype, device=device),
+                "ssm": ssm_mod.init_ssm_params(generator, cfg, dtype, device),
+            })
+            continue
         params["blocks"].append({
             "ln1": torch.ones((D,), dtype=dtype, device=device),
             "ln2": torch.ones((D,), dtype=dtype, device=device),
@@ -86,17 +96,19 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
     """Convert the JAX package's params pytree, given as nested dicts of numpy
     arrays (blocks stacked on axis 0, weights (in, out)), into this package's
-    parameters in ``cfg.dtype`` on ``device``."""
+    parameters on ``device``: ``A_log``, ``D`` and ``dt_bias`` in float32,
+    as the JAX package keeps them, every other leaf in ``cfg.dtype``."""
     _check_family(cfg)
     dtype = _dtype(cfg)
 
-    def conv(tree, index=None):
+    def conv(tree, index=None, name=None):
         if isinstance(tree, Mapping):
-            return {k: conv(v, index) for k, v in tree.items()}
+            return {k: conv(v, index, k) for k, v in tree.items()}
         a = np.asarray(tree)
-        return _from_numpy(a if index is None else a[index], dtype, device)
+        leaf_dtype = torch.float32 if name in ssm_mod.F32_PARAMS else dtype
+        return _from_numpy(a if index is None else a[index], leaf_dtype, device)
 
-    params = {k: conv(v) for k, v in np_params.items() if k != "blocks"}
+    params = {k: conv(v, name=k) for k, v in np_params.items() if k != "blocks"}
     params["blocks"] = [conv(np_params["blocks"], i) for i in range(cfg.n_layers)]
     return params
 
@@ -132,6 +144,11 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
+    if cfg.family == "ssm":
+        for blk in params["blocks"]:
+            h = h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
+                                        impl=impl)
+        return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
     for blk in params["blocks"]:
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
                                       cfg, impl=impl)
@@ -145,11 +162,16 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     _check_family(cfg)
+    lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        st = ssm_mod.init_ssm_state(cfg, batch, _dtype(cfg), device)
+        return {"lengths": lengths,
+                "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     smax = min(max_len, cfg.sliding_window) if cfg.sliding_window is not None else max_len
     shape = (cfg.n_layers, batch, smax, KV, hd)
     return {
-        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "lengths": lengths,
         "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
         "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
     }
@@ -162,6 +184,16 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
+    if cfg.family == "ssm":
+        states = []
+        for blk in params["blocks"]:
+            x = rms_norm(h, blk["ln"], cfg.norm_eps)
+            o, st = ssm_mod.ssm_forward(blk["ssm"], x, cfg, impl=impl, return_state=True)
+            h = h + o
+            states.append(st)
+        cache = {"lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
+                 "ssm_state": tuple(torch.stack(leaf) for leaf in zip(*states))}
+        return lm_logits(params, cfg, h[:, -1]), cache
     cache = init_cache(cfg, b, max_len, device=h.device)
     cache["lengths"].fill_(s)
     smax = cache["k"].shape[2]
@@ -178,18 +210,32 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
                 active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step.  tokens (B,) -> (logits (B,Vp) fp32, new cache).
 
-    The new cache shares ``cache``'s K/V tensors, whose rows at each length
-    are written in place. With the bool mask ``active`` (B,), inactive
-    sequences keep their K/V rows and their lengths."""
+    The new cache shares ``cache``'s K/V or state tensors, which are
+    updated in place: K/V rows at each length, every layer's conv and SSM
+    states. With the bool mask ``active`` (B,), inactive sequences keep
+    their rows, their states and their lengths."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
+    step = 1 if active is None else active.to(torch.int32)
     h = params["embed"][tokens][:, None, :]             # (B,1,D)
+    if cfg.family == "ssm":
+        states = cache["ssm_state"]
+        for i, blk in enumerate(params["blocks"]):
+            x = rms_norm(h, blk["ln"], cfg.norm_eps)
+            o, new = ssm_mod.ssm_decode(blk["ssm"], x, tuple(a[i] for a in states), cfg)
+            h = h + o
+            for a, st in zip(states, new, strict=True):
+                if active is not None:
+                    keep = active.view(-1, *([1] * (st.dim() - 1)))
+                    st = torch.where(keep, st, a[i])
+                a[i].copy_(st)
+        return lm_logits(params, cfg, h[:, 0]), {"lengths": lengths + step,
+                                                  "ssm_state": states}
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
         h = h + attn_mod.attn_decode(blk["attn"], x, cache["k"][i], cache["v"][i], lengths,
                                      cfg, impl=impl, active=active)
         h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
-    step = 1 if active is None else active.to(torch.int32)
     new_cache = {"lengths": lengths + step, "k": cache["k"], "v": cache["v"]}
     return lm_logits(params, cfg, h[:, 0]), new_cache

@@ -1,6 +1,6 @@
 """Batched decode engine with slot management (continuous batching).
 
-The engine owns a fixed-capacity batched KV cache; requests occupy
+The engine owns a fixed-capacity batched KV or state cache; requests occupy
 *slots*.  Free slots are the serving-side analogue of the paper's "slack
 resources": B-PASTE admits speculative sequences into them, preempts by
 dropping a slot at the next decode-step boundary (one step = the preemption
@@ -9,9 +9,10 @@ authoritative — zero-copy, KV rows are slot-stable.
 
 Unlike the JAX engine, which masks the whole cache with ``jnp.where`` after
 every step and rewrites the whole cache tree when it admits a request, this
-engine updates the cache in place: a step writes only the new K/V rows of
-active slots (inactive slots keep their rows and lengths), and
-``add_request`` copies the prefilled cache into its slot's rows.
+engine updates the cache in place: a step writes only the new K/V rows or
+states of active slots (inactive slots keep theirs and their lengths), and
+``add_request`` copies every leaf of the prefilled cache into its slot,
+cast to the batched leaf's dtype as the JAX engine's ``_write_slot`` does.
 """
 from __future__ import annotations
 
@@ -88,8 +89,14 @@ class ServingEngine:
         toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
                                            self.max_len)
-        self.cache["k"][:, slot].copy_(cache1["k"][:, 0])
-        self.cache["v"][:, slot].copy_(cache1["v"][:, 0])
+        for name, leaf in cache1.items():
+            if name == "lengths":
+                continue
+            # every other leaf is (L, batch, ...): k/v, or the ssm state tuple
+            pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
+                else ((self.cache[name], leaf),)
+            for big, small in pairs:
+                big[:, slot].copy_(small[:, 0])
         self.cache["lengths"][slot] = len(prompt)
         self.pending_tokens[slot] = int(torch.argmax(logits[0]))
         return slot

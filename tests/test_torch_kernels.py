@@ -147,6 +147,10 @@ def test_kernel_impl_on_cpu_tensor_raises():
                         _decode_inputs((1, 4, 2, 32, 16), "float32", seed=6))
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(qd, kc, vc, lens, impl="kernel")
+    x, B = torch.zeros((1, 8, 2, 64)), torch.zeros((1, 8, 1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(x, torch.zeros((1, 8, 2)), torch.zeros(2), B, B, torch.zeros(2),
+                     impl="kernel")
 
 
 def test_unknown_impl_raises():
