@@ -11,17 +11,24 @@ Phases, one line of output each (or more):
      serving paths' shapes and at long shapes, with its time, the plain
      version's time, the time of one library call computing the same
      function (scaled_dot_product_attention for attention, a yardstick the
-     port never calls; no single PyTorch call computes the SSD scan) and
-     the least time the card could take (bound);
+     port never calls; no single PyTorch call computes the SSD scan or
+     unnormalized decode partials) and the least time the card could take
+     (bound);
   3. each serving path at full width (bf16, random weights from a seed)
      through the speculative agent loop, speculation off then on, with the
      kernels' launch counts over that run and the profiles of a batched
      decode step and of a 19-token prefill: qwen2-7b (28 layers; flash and
-     decode attention), then mamba2-2.7b (64 layers; the SSD scan in every
-     prefill);
+     decode attention); qwen2-7b sequence-sharded over a local mesh of 4
+     shards on the card, with the same weights, with a bf16 and then an
+     int8 KV cache (the split-KV partials kernel in every layer of every
+     step, 4 launches each); then mamba2-2.7b (64 layers; the SSD scan in
+     every prefill);
   4. after each model's run, a batched engine slot against a standalone
      prefill + decode at full width, teacher-forced, and the kernel path
-     against the oracle path;
+     against the oracle path; for the sharded runs, the sharded engine's
+     slot against the unsharded standalone decode, and sharded engines
+     against unsharded ones, int8 and bf16 caches, on log-softmax (bound:
+     the unsharded kernel path against the oracle path);
   5. one JSON line on the kernels; last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
@@ -163,6 +170,60 @@ def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
     return case
 
 
+def partials_case(ops, gen, flush, smax, lengths, dtype, window, timed):
+    """The split-KV partials over the 4 slices of a (4, smax, 4, 128) cache
+    (qwen2-7b's batch, kv heads and head_dim; 28 query heads), each slice a
+    view of the cache, with f32 pre-scaled q as the sharded decode passes
+    it; without a window the four are also combined and held against
+    decode attention over the whole cache. Timed per launch over a sweep of
+    the 4 slices (one layer of a sharded decode step)."""
+    b, h, kv, d = 4, 28, 4, 128
+    q = torch.randn((b, h, d), generator=gen, device="cuda") * d ** -0.5
+    kc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    chunk = smax // 4
+    views = [(kc[:, lo:lo + chunk], vc[:, lo:lo + chunk], torch.clamp(lens - lo, 0, chunk))
+             for lo in range(0, smax, chunk)]
+    kw = dict(scale=1.0, window=window)
+    err, parts = 0.0, []
+    for r, (kv_k, kv_v, eff) in enumerate(views):
+        want = ops.decode_attention_partials(q, kv_k, kv_v, eff, impl="plain", **kw)
+        got = ops.decode_attention_partials(q, kv_k, kv_v, eff, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("acc", "m", "l"), got, want, strict=True):
+            assert torch.isfinite(g).all(), f"partials {name} of slice {r} is not finite"
+            err = max(err, _check(f"decode_attention_partials {[b, smax, h, kv, d]} slice {r} "
+                                  f"{name}", g, w, dtype))
+        parts.append(got)
+    effs = [v[2].tolist() for v in views]
+    assert any(0 < e < chunk for row in effs for e in row) and any(0 in row for row in effs)
+    case = {"shape": [b, smax, h, kv, d], "dtype": str(dtype).split(".")[1], "window": window,
+            "lengths": lengths, "slice_lengths": effs, "max_abs_err": err}
+    if window is None:
+        acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))
+        coef = torch.where(torch.isfinite(m), torch.exp(m - m.amax(0)), 0.0)
+        out = (acc * coef[..., None]).sum(0) / torch.clamp((denom * coef).sum(0)[..., None], min=1e-30)
+        whole = ops.decode_attention(q, kc, vc, lens, impl="plain", **kw)
+        case["combined_err"] = _check(f"decode_attention_partials {[b, smax]} combined",
+                                      out.reshape(b, h, d), whole, dtype)
+    if not timed:
+        return case
+    visited = sum(e - (max(0, e - window) if window is not None else 0)
+                  for row in effs for e in row)
+    n_bytes = (4 * _nbytes(q, lens, *parts[0]) + 2 * visited * kv * d * kc.element_size())
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes / 4, 4 * visited * h * d / 4, dtype)
+
+    def sweep(impl):
+        for kv_k, kv_v, eff in views:
+            ops.decode_attention_partials(q, kv_k, kv_v, eff, impl=impl, **kw)
+
+    case["ms"] = _time_ms(lambda: sweep("kernel"), 50, flush) / 4
+    case["plain_ms"] = _time_ms(lambda: sweep("plain"), 50, flush) / 4
+    case["library_ms"] = None   # no single PyTorch call returns unnormalized partials
+    return case
+
+
 def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
     x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
     dt = torch.empty((b, s, h), device="cuda").uniform_(0.001, 0.1, generator=gen)
@@ -201,7 +262,8 @@ def _profile(label, run, calls, kernel, weight_bytes):
     kernels' times) over ``run``, which makes ``calls`` calls and
     synchronises, against the host's wall time per call, with the named
     kernel's own share and the weight bytes a call reads (every weight but
-    the embedding table, of which it reads a row per token)."""
+    the embedding table, of which it reads a row per token). ``kernel`` is
+    (name, the name of its __global__ function), or None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -217,9 +279,11 @@ def _profile(label, run, calls, kernel, weight_bytes):
     launches = sum(e.count for e in kernels) / calls
     own = ""
     if kernel is not None:
-        mine = [e for e in kernels if f"{kernel}_kernel" in e.key]
-        assert mine, f"the trace holds no {kernel} kernel"
-        own = (f"; {kernel} {sum(e.self_device_time_total for e in mine) / calls / 1e3:.4f} ms "
+        name, symbol = kernel
+        mine = [e for e in kernels if symbol in e.key]
+        assert mine, f"the trace holds no {name} kernel"
+        mine_ms = sum(e.self_device_time_total for e in mine) / calls / 1e3
+        own = (f"; {name} {mine_ms:.4f} ms ({mine_ms / device_ms:.3f} of the device time) "
                f"in {sum(e.count for e in mine) / calls:.0f} launches")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     shares = ", ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms"
@@ -231,10 +295,12 @@ def _profile(label, run, calls, kernel, weight_bytes):
           f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
 
 
-def _profile_steps(M, params, cfg, engine, decode_kernel, prefill_kernel, calls=3):
-    """Profile a batched decode step (all slots active) and the prefill of a
-    19-token prompt, the length of a speculative observation. A Mamba2
-    decode step runs none of this repository's kernels."""
+def _profile_steps(M, params, engine, label, decode_kernel, prefill_kernel, calls=3):
+    """Profile a batched decode step (all slots active) and, unless
+    ``prefill_kernel`` is False, the prefill of a 19-token prompt, the
+    length of a speculative observation. A Mamba2 decode step runs none of
+    this repository's kernels."""
+    cfg = engine.cfg
     weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
     tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
     active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
@@ -242,7 +308,8 @@ def _profile_steps(M, params, cfg, engine, decode_kernel, prefill_kernel, calls=
 
     def decode():
         for _ in range(calls):
-            M.decode_step(params, cfg, engine.cache, tokens, active=active)
+            M.decode_step(params, cfg, engine.cache, tokens, active=active,
+                          mesh_info=engine.mesh_info)
         torch.cuda.synchronize()
 
     def prefill():
@@ -250,10 +317,11 @@ def _profile_steps(M, params, cfg, engine, decode_kernel, prefill_kernel, calls=
             M.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len)
         torch.cuda.synchronize()
 
-    _profile(f"{cfg.name} decode step at batch {engine.max_batch}", decode, calls,
+    _profile(f"{label} decode step at batch {engine.max_batch}", decode, calls,
              decode_kernel, weight_bytes)
-    _profile(f"{cfg.name} prefill of {prompt.shape[1]} tokens", prefill, calls,
-             prefill_kernel, weight_bytes)
+    if prefill_kernel is not False:
+        _profile(f"{label} prefill of {prompt.shape[1]} tokens", prefill, calls,
+                 prefill_kernel, weight_bytes)
 
 
 def _tensors(tree):
@@ -263,57 +331,66 @@ def _tensors(tree):
     return [t for item in items for t in _tensors(item)]
 
 
-def serve_model(M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters, kernels):
-    """Phase 3 for one model: init at full width, warm up, then serve the
-    episodes with speculation off and on, the kernels' counts set to 0 just
-    before and read just after; then profile a decode step and a prefill
-    (``kernels``: the repository's kernel in each, or None)."""
+def init_model(M, cfg):
     t0 = time.time()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _tensors(params))
     print(f"phase 3 init: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{n_params / 1e9:.3f} B params {cfg.dtype} in {time.time() - t0:.1f} s", flush=True)
-    engine = ServingEngine(cfg, params, max_batch=4, max_len=192, device="cuda")
+    return params
+
+
+def serve_model(M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters,
+                label, mesh_info=None):
+    """Phase 3 for one model: warm up, then serve the episodes with
+    speculation off and on, the kernels' counts (``counters``: name ->
+    (module, attribute)) set to 0 just before and read just after."""
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=192, mesh_info=mesh_info,
+                           device="cuda")
     serve_agent_loop(False, cfg, engine, episodes[:1], pe, reason_tokens=1)   # warm-up
-    for mod in counters.values():
-        mod.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     steps0 = engine.steps_executed
     runs = {}
     for spec_on in (False, True):
         dt, steps, hits, spec = serve_agent_loop(spec_on, cfg, engine, episodes, pe)
         runs[spec_on] = spec
-        print(f"phase 3 {cfg.name} serve speculation={'on' if spec_on else 'off'}: {steps} "
+        print(f"phase 3 {label} serve speculation={'on' if spec_on else 'off'}: {steps} "
               f"decode steps in {dt:.3f} s ({steps / dt:.2f} steps/s, "
               f"{dt / steps * 1e3:.2f} ms/step), admitted={spec.admitted} "
               f"promotions={spec.promotions} preemptions={spec.preemptions} hits={hits}",
               flush=True)
-    launches = {name: mod.launches for name, mod in counters.items()}
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     engine_steps = engine.steps_executed - steps0
     prefills = 2 * len(episodes) + runs[True].admitted
-    print(f"phase 3 {cfg.name} launches: {launches} over {prefills} prefills and "
+    print(f"phase 3 {label} launches: {launches} over {prefills} prefills and "
           f"{engine_steps} engine steps of {cfg.n_layers} layers", flush=True)
     assert runs[True].admitted > 0, "speculation admitted no slot"
-    _profile_steps(M, params, cfg, engine, *kernels)
-    return params, engine, launches, prefills, engine_steps
+    return engine, launches, prefills, engine_steps
 
 
-def check_model(M, cfg, params, engine):
-    """Phase 4 for one model: a batched slot against a standalone prefill +
-    decode, teacher-forced, and the kernel path against the oracle path."""
-    prompt = [5, 6, 7, 8]
+def check_model(M, cfg, params, engine, label, need=5, prompt=(5, 6, 7, 8)):
+    """Phase 4 for one model: a batched slot of ``engine`` against a
+    standalone prefill + decode with ``cfg``, teacher-forced, and the
+    engine's own path (sharded where it is) against the oracle path."""
+    prompt = list(prompt)
     toks = torch.tensor([prompt], device="cuda")
-    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    mi = engine.mesh_info
+    ref_cfg = dataclasses.replace(engine.cfg, attn_impl="ref")
     lg, cache = M.prefill(params, cfg, {"tokens": toks}, max_len=192)
+    lg_path, cache_path = M.prefill(params, engine.cfg, {"tokens": toks}, max_len=192)
     lg_ref, cache_ref = M.prefill(params, ref_cfg, {"tokens": toks}, max_len=192)
     tok = torch.argmax(lg, -1)
     forced, toks_single, corr = [int(tok[0])], [], []
     for _ in range(6):
-        pair = torch.stack([lg[0, :cfg.vocab_size], lg_ref[0, :cfg.vocab_size]])
+        pair = torch.stack([lg_path[0, :cfg.vocab_size], lg_ref[0, :cfg.vocab_size]])
         corr.append(float(torch.corrcoef(pair)[0, 1]))
         lg, cache = M.decode_step(params, cfg, cache, tok)
-        lg_ref, cache_ref = M.decode_step(params, ref_cfg, cache_ref, tok)
+        lg_path, cache_path = M.decode_step(params, engine.cfg, cache_path, tok, mesh_info=mi)
+        lg_ref, cache_ref = M.decode_step(params, ref_cfg, cache_ref, tok, mesh_info=mi)
         assert lg.shape == (1, cfg.padded_vocab) and torch.isfinite(lg[:, :cfg.vocab_size]).all()
+        assert torch.isfinite(lg_path[:, :cfg.vocab_size]).all()
         tok = torch.argmax(lg, -1)
         toks_single.append(int(tok[0]))
         forced.append(int(tok[0]))
@@ -323,10 +400,56 @@ def check_model(M, cfg, params, engine):
         engine.pending_tokens[slot] = forced[i]
         toks_batched.append(engine.step()[slot])
     agree = sum(a == b for a, b in zip(toks_batched, toks_single, strict=True))
-    print(f"phase 4 {cfg.name} teacher-forced: batched {toks_batched} single {toks_single} "
+    print(f"phase 4 {label} teacher-forced: batched {toks_batched} single {toks_single} "
           f"agree {agree}/6; kernel-vs-oracle logit correlation min {min(corr):.6f}", flush=True)
-    assert agree >= 5, (toks_batched, toks_single)
+    assert agree >= need, (toks_batched, toks_single)
     assert min(corr) > 0.99, corr
+
+
+def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
+    """Phase 4: sharded engines against unsharded ones, int8 and bf16
+    caches, the same requests and tokens, on log-softmax of every active
+    slot. The prompts (61 and 120 tokens) put keys in the first three of
+    the four shards, so the combine adds partials of several shards. The
+    bound is the unsharded kernel path against the oracle path
+    (``attn_impl="ref"``) on the same requests: two roundings of the same
+    bf16 model, whose log-softmax differ by ~0.08 at full width, so the
+    2e-2 of tests/test_perf_features.py::test_sharded_decode_multidevice
+    (a reduced model) holds for no two paths here; the CPU tests hold the
+    sharded path to it at reduced size. A dropped or misplaced shard moves
+    the log-softmax by far more."""
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    configs = {"int8": (int8, None),
+               "int8 sharded": (dataclasses.replace(int8, sharded_decode_attn=True), mesh_info),
+               "bf16": (cfg, None),
+               "bf16 sharded": (dataclasses.replace(cfg, sharded_decode_attn=True), mesh_info),
+               "oracle": (dataclasses.replace(cfg, attn_impl="ref"), None)}
+    engines = {name: ServingEngine(c, params, max_batch=4, max_len=192, mesh_info=mi,
+                                   device="cuda") for name, (c, mi) in configs.items()}
+    pairs = {"int8 sharded vs unsharded": ("int8", "int8 sharded"),
+             "bf16 sharded vs unsharded": ("bf16", "bf16 sharded"),
+             "kernel vs oracle, unsharded": ("bf16", "oracle")}
+    for eng in engines.values():
+        eng.add_request(list(range(2, 63)), request_id=1)
+        eng.add_request(list(range(2, 122)), request_id=2, speculative=True)
+    tokens = torch.as_tensor(engines["bf16"].pending_tokens, dtype=torch.int64).cuda()
+    active = torch.tensor([True, True, False, False], device="cuda")
+    errs = {name: [] for name in pairs}
+    for _ in range(steps):
+        lsm = {}
+        for name, eng in engines.items():
+            lg, eng.cache = M.decode_step(params, eng.cfg, eng.cache, tokens, active=active,
+                                          mesh_info=eng.mesh_info)
+            lsm[name] = torch.log_softmax(lg[:2, :cfg.vocab_size], dim=-1)
+        for name, (a, b) in pairs.items():
+            errs[name].append((lsm[a] - lsm[b]).abs().max().item())
+        tokens[:2] = torch.argmax(lsm["bf16"], dim=-1)
+    assert engines["int8 sharded"].cache["k"][0].dtype == torch.int8
+    floor = max(errs["kernel vs oracle, unsharded"])
+    print(f"phase 4 {cfg.name} max |log-softmax difference| over 2 slots per step (bound: "
+          f"the kernel-vs-oracle maximum {floor:.4f}): {json.dumps(errs)}", flush=True)
+    assert max(errs["int8 sharded vs unsharded"]) <= floor, errs
+    assert max(errs["bf16 sharded vs unsharded"]) <= floor, errs
 
 
 def main():
@@ -342,6 +465,7 @@ def main():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_local_mesh, mesh_axes, mesh_counts
     from repro_torch.launch.serve import serve_agent_loop
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
@@ -363,7 +487,8 @@ def main():
     # ---- phase 2: kernels against their plain versions ------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    cases = {"flash_attention": [], "decode_attention": [], "ssd_scan": []}
+    cases = {"flash_attention": [], "decode_attention": [], "decode_attention_partials": [],
+             "ssd_scan": []}
     for dtype in (torch.bfloat16, torch.float32):
         timed = dtype == torch.bfloat16
         for s, window in ((3, None), (19, None), (2048, None), (2048, 512)):
@@ -372,6 +497,14 @@ def main():
         for smax, window in ((192, None), (4096, 1024)):
             cases["decode_attention"].append(
                 decode_case(ops, gen, flush, 4, 28, 4, 128, smax, dtype, window, timed))
+        # 4 slices of qwen2-7b's sharded serving cache (Smax 192, slices of 48
+        # that are full, partial and empty), then 4 slices of Smax 4096
+        for smax, lengths, window, timed_p in (
+                (192, [65, 10, 192, 150], None, timed),
+                (4096, [4096, 1, 2500, 1024], None, timed),
+                (4096, [4096, 1, 2500, 1024], 1024, False)):
+            cases["decode_attention_partials"].append(
+                partials_case(ops, gen, flush, smax, lengths, dtype, window, timed_p))
         # mamba2-2.7b's prompts of 3 and 19 tokens, a ragged second chunk with
         # an initial state over two groups, and a long prompt
         for s, g, with_h0, timed_ssd in ((3, 1, False, False), (19, 1, False, timed),
@@ -386,45 +519,80 @@ def main():
     pe = PatternEngine(context_len=2, min_support=3).fit(
         episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
     episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
-    counters = {"flash_attention": fa, "decode_attention": da, "ssd_scan": ssd}
+    counters = {"flash_attention": (fa, "launches"), "decode_attention": (da, "launches"),
+                "decode_attention_partials": (da, "partials_launches"),
+                "ssd_scan": (ssd, "launches")}
     launches = {}
 
     cfg = get_config("qwen2-7b")
-    params, engine, counts, prefills, engine_steps = serve_model(
-        M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters,
-        ("decode_attention", "flash_attention"))
+    params = init_model(M, cfg)
+    engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
     assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
-    assert counts["ssd_scan"] == 0, counts
+    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
     launches["flash_attention"] = counts["flash_attention"]
     launches["decode_attention"] = counts["decode_attention"]
-    check_model(M, cfg, params, engine)
-    del params, engine
+    _profile_steps(M, params, engine, cfg.name, ("decode_attention", "decode_attention_kernel"),
+                   ("flash_attention", "flash_attention_kernel"))
+    check_model(M, cfg, params, engine, cfg.name)
+    del engine
+
+    # the same weights, sequence-sharded over 4 shards of the cache on this card
+    mesh = make_local_mesh(4)
+    n_batch, n_model = mesh_counts(mesh)
+    mi = M.MeshContext(mesh, *mesh_axes(mesh), n_model, n_batch)
+    partials = ("decode_attention_partials", "decode_attention_kernel")
+    for kv_dtype in ("bfloat16", "int8"):
+        cfg_sh = dataclasses.replace(cfg, sharded_decode_attn=True, kv_cache_dtype=kv_dtype)
+        label = f"{cfg.name} sharded x{n_model} {kv_dtype} cache"
+        engine, counts, prefills, engine_steps = serve_model(
+            M, ServingEngine, serve_agent_loop, cfg_sh, params, pe, episodes, counters, label,
+            mesh_info=mi)
+        assert counts["decode_attention_partials"] == \
+            cfg.n_layers * n_model * engine_steps > 0, counts
+        assert counts["decode_attention"] == counts["ssd_scan"] == 0, counts
+        assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
+        if kv_dtype == "bfloat16":
+            launches["decode_attention_partials"] = counts["decode_attention_partials"]
+        _profile_steps(M, params, engine, label, partials, False)
+        if kv_dtype == "bfloat16":
+            # a 100-token prompt: the slot's keys span the first three shards
+            check_model(M, cfg, params, engine, label, need=6, prompt=range(5, 105))
+        del engine
+    check_sharded_engines(M, ServingEngine, cfg, params, mi)
+    del params
     torch.cuda.empty_cache()
 
     cfg = get_config("mamba2-2.7b")
-    params, engine, counts, prefills, engine_steps = serve_model(
-        M, ServingEngine, serve_agent_loop, cfg, pe, episodes, counters, (None, "ssd_scan"))
+    params = init_model(M, cfg)
+    engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
     assert counts["flash_attention"] == counts["decode_attention"] == 0, counts
+    assert counts["decode_attention_partials"] == 0, counts
     launches["ssd_scan"] = counts["ssd_scan"]
-    check_model(M, cfg, params, engine)
+    _profile_steps(M, params, engine, cfg.name, None, ("ssd_scan", "ssd_scan_kernel"))
+    check_model(M, cfg, params, engine, cfg.name)
 
     # ---- phase 5: the kernels line; then the device line -----------------
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:113",
         "decode_attention": "src/repro/kernels/decode_attention.py:121",
+        "decode_attention_partials": "src/repro/kernels/decode_attention.py:169",
         "ssd_scan": "src/repro/kernels/ssd_scan.py:122",
     }
+    source = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in replaces}
+    source["decode_attention_partials"] = source["decode_attention"]
     path_case = {"flash_attention": cases["flash_attention"][1],     # S=19 speculative prefill
                  "decode_attention": cases["decode_attention"][0],  # (4,192,4,128) serving step
+                 "decode_attention_partials": cases["decode_attention_partials"][0],  # 4 x 48
                  "ssd_scan": cases["ssd_scan"][1]}                  # S=19 speculative prefill
     kernels = []
-    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+    for name in replaces:
         c = path_case[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(x["max_abs_err"] for x in cases[name]),
             "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -1,20 +1,26 @@
-"""Flash-decode: the hand-written CUDA kernel and its plain PyTorch version.
+"""Flash-decode and its split-KV partials: the hand-written CUDA kernel's
+two entries and their plain PyTorch versions.
 
-``decode_attention_kernel`` launches ``csrc/decode_attention.cu`` (the
-Hopper port of ``repro/kernels/decode_attention.py::decode_attention_pallas``;
-its source carries the design note). ``decode_attention_plain`` is the same
-computation in PyTorch: a loop over cache blocks with a streaming fp32
-softmax. The CPU tests run the plain version; on the card it is only the
-yardstick the kernel is held against.
+``decode_attention_kernel`` and ``decode_attention_partials_kernel`` launch
+the two entries of ``csrc/decode_attention.cu`` (the Hopper port of
+``repro/kernels/decode_attention.py``'s ``decode_attention_pallas`` and
+``decode_attention_partials_pallas``; its source carries the design note).
+``decode_attention_plain`` and ``decode_attention_partials_plain`` are the
+same computations in PyTorch: a loop over cache blocks with a streaming
+fp32 softmax. The CPU tests run the plain versions; on the card they are
+only the yardsticks the kernel is held against.
 
 Layout: q (B, H, D), cache (B, Smax, KV, D), lengths (B,) -> (B, H, D) in
-q's dtype; the query attends to [0, len) or [len - window, len).
+q's dtype; the query attends to [0, len) or [len - window, len). The
+partials take a slice of the cache (a view is read in place) and lengths
+measured against it, and return the unnormalized accumulator acc
+(B, KV, G, D) with the running max m and sum l (B, KV, G), all fp32.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,13 +33,17 @@ MAX_GROUP = 16  # query heads per kv head the kernel holds (MAXG in the source)
 _BLOCK_K = 1024  # cache rows per step of the plain version's loop
 
 launches = 0  # kernel launches made by decode_attention_kernel; callers may reset it
+partials_launches = 0  # launches made by decode_attention_partials_kernel; likewise
 
 
-def decode_attention_plain(
+def decode_attention_partials_plain(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lengths: torch.Tensor, *, scale: float, window: Optional[int],
-) -> torch.Tensor:
-    """Streaming decode attention in PyTorch: a loop over cache blocks."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Streaming decode attention in PyTorch, a loop over cache blocks,
+    without the final division: (acc, m, l). Masked keys get p = 0, so a
+    slice of length 0 returns m = -1e30, l = 0 and acc = 0 (the Pallas
+    kernel's initial state)."""
     b, h, d = q.shape
     smax, kv = k_cache.shape[1], k_cache.shape[2]
     grp = h // kv
@@ -50,15 +60,26 @@ def decode_attention_plain(
         mask = kpos < lens
         if window is not None:
             mask &= kpos >= lens - window
-        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+        mask = mask[:, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        p = torch.exp(s - m_new[..., None]) * mask
         corr = torch.exp(m - m_new)
         denom = denom * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vblk)
         m = m_new
+    return acc, m, denom
+
+
+def decode_attention_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float, window: Optional[int],
+) -> torch.Tensor:
+    """Streaming decode attention in PyTorch: the partials, divided."""
+    acc, _, denom = decode_attention_partials_plain(q, k_cache, v_cache, lengths, scale=scale,
+                                                    window=window)
     out = acc / torch.clamp(denom[..., None], min=1e-30)
-    return out.reshape(b, h, d).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
 
 
 @functools.cache
@@ -71,6 +92,15 @@ def _kernel():
 
 
 @functools.cache
+def _partials_kernel():
+    fn = _build.load("decode_attention").decode_attention_partials_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_long] + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _error_string(err: int) -> str:
     fn = _build.load("decode_attention").decode_attention_error_string
     fn.argtypes = [ctypes.c_int]
@@ -78,18 +108,16 @@ def _error_string(err: int) -> str:
     return fn(err).decode()
 
 
-def _check(q, k_cache, v_cache, lengths, window):
+def _check_common(who, q, k_cache, v_cache, lengths, window):
     if not q.is_cuda:
-        raise ValueError("decode_attention_kernel runs on CUDA tensors only; "
-                         f"got a tensor on {q.device}")
+        raise ValueError(f"{who} runs on CUDA tensors only; got a tensor on {q.device}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"dtype {q.dtype} not supported; use float32 or bfloat16")
+    if v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"v_cache is {v_cache.dtype}, k_cache is {k_cache.dtype}")
+    if k_cache.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {k_cache.dtype} not supported; use float32 or bfloat16")
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     if q.device.index != torch.cuda.current_device():
@@ -109,14 +137,43 @@ def _check(q, k_cache, v_cache, lengths, window):
         raise ValueError(f"GQA group {h // kv} exceeds the kernel's {MAX_GROUP}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+    for name, t in (("q", q), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads "
                              "16 bytes at a time)")
+
+
+def _check(q, k_cache, v_cache, lengths, window):
+    _check_common("decode_attention_kernel", q, k_cache, v_cache, lengths, window)
+    if k_cache.dtype != q.dtype:
+        raise ValueError(f"k_cache is {k_cache.dtype}, q is {q.dtype}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_partials(q, k_cache, v_cache, lengths, window):
+    """As :func:`_check`, but q is float32 against a float32 or bfloat16
+    cache, and the cache may be a slice of the sequence axis of a larger
+    one: rows contiguous, sequences any 16-byte multiple apart."""
+    _check_common("decode_attention_partials_kernel", q, k_cache, v_cache, lengths, window)
+    if q.dtype != torch.float32:
+        raise ValueError(f"q must be float32 (pre-scaled), got {q.dtype}")
+    _, chunk, kv, d = k_cache.shape
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride()[1:] != (kv * d, d, 1):
+            raise ValueError(f"{name} rows must be contiguous (strides (*, {kv * d}, {d}, 1)),"
+                             f" got {t.stride()}")
+    if v_cache.stride(0) != k_cache.stride(0):
+        raise ValueError(f"k_cache and v_cache have batch strides {k_cache.stride(0)} and "
+                         f"{v_cache.stride(0)}")
+    bs = k_cache.stride(0)
+    if bs < chunk * kv * d or bs * k_cache.element_size() % 16:
+        raise ValueError(f"batch stride {bs} must cover a slice of {chunk} rows and be a "
+                         "multiple of 16 bytes")
 
 
 def decode_attention_kernel(
@@ -141,3 +198,32 @@ def decode_attention_kernel(
         raise RuntimeError(f"decode_attention kernel launch failed: {_error_string(err)}")
     launches += 1
     return out
+
+
+def decode_attention_partials_kernel(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float, window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the partials entry of the CUDA kernel on PyTorch's current
+    stream, reading the cache slice in place; raises on a CPU tensor, on an
+    input it does not take, or if the launch fails."""
+    global partials_launches
+    _check_partials(q, k_cache, v_cache, lengths, window)
+    b, h, d = q.shape
+    chunk, kv = k_cache.shape[1], k_cache.shape[2]
+    acc = torch.empty((b, kv, h // kv, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, kv, h // kv), dtype=torch.float32, device=q.device)
+    denom = torch.empty_like(m)
+    if acc.numel() == 0:
+        return acc, m, denom
+    err = _partials_kernel()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), denom.data_ptr(), b, chunk, k_cache.stride(0), h, kv, d,
+        -1 if window is None else int(window), float(scale), DTYPE_CODES[k_cache.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_attention_partials kernel launch failed: "
+                           f"{_error_string(err)}")
+    partials_launches += 1
+    return acc, m, denom

@@ -9,7 +9,8 @@ impl selection:
   'ref'    -> the materialized or sequential oracle from ref.py
 
 Signatures and layouts follow ``repro.kernels.ops``: BSHD for prefill,
-q (B,H,D) against a (B,Smax,KV,D) cache for decode, x (B,S,H,P) with
+q (B,H,D) against a (B,Smax,KV,D) cache (or a slice of one, for the
+split-KV partials) for decode, x (B,S,H,P) with
 B/C (B,S,G,N) for the SSD scan. ``ssm_decode_step`` is plain PyTorch: the
 JAX package computes it outside any Pallas kernel too.
 """
@@ -75,6 +76,35 @@ def decode_attention(
         return _da.decode_attention_plain(
             q, k_cache, v_cache, lengths, scale=scale, window=window)
     return _da.decode_attention_kernel(
+        q, k_cache, v_cache, lengths, scale=scale, window=window)
+
+
+def decode_attention_partials(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-KV flash-decode partials over a local cache slice:
+    (acc (B,KV,G,D) f32 unnormalized, m (B,KV,G), l (B,KV,G)).
+
+    ``lengths`` is the effective length measured against this slice (0 for
+    a slice wholly past the sequence); the caller combines the slices'
+    partials (models.attention.attn_decode_sharded). The slice may be a view
+    of a larger cache: the kernel reads it in place."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    impl = _resolve(impl, q)
+    if impl == "ref":
+        return _ref.decode_attention_partials_reference(
+            q, k_cache, v_cache, lengths, scale=scale, window=window)
+    if impl == "plain":
+        return _da.decode_attention_partials_plain(
+            q, k_cache, v_cache, lengths, scale=scale, window=window)
+    return _da.decode_attention_partials_kernel(
         q, k_cache, v_cache, lengths, scale=scale, window=window)
 
 

@@ -6,7 +6,7 @@ model tests compare against them; the serving path never calls them.
 
 Layout conventions (public API, shared with ops.py):
   q, k, v : (B, S, H, D) / (B, S, KV, D)   -- "BSHD"
-  decode q: (B, H, D), cache: (B, Smax, KV, D)
+  decode q: (B, H, D), cache: (B, Smax, KV, D); partials (acc (B,KV,G,D), m, l (B,KV,G))
   SSD     : x (B, S, H, P), dt (B, S, H), B/C (B, S, G, N), state (B, H, P, N)
 """
 from __future__ import annotations
@@ -83,6 +83,38 @@ def decode_attention_reference(
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", probs.to(vv.dtype), vv)
+
+
+def decode_attention_partials_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split-KV decode partials oracle over a (slice of a) cache, the
+    materialized twin of the JAX package's jnp path of
+    ``ops.decode_attention_partials``: returns (acc (B,KV,G,D) unnormalized,
+    m (B,KV,G), l (B,KV,G)), all float32. lengths are measured against the
+    slice; a slice of length 0 gives m = -1e30, l = 0, acc = 0."""
+    b, h, d = q.shape
+    smax, kv = k_cache.shape[1], k_cache.shape[2]
+    grp = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    qf = (q.float() * scale).reshape(b, kv, grp, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    lens = lengths.to(q.device)[:, None]
+    mask = kpos < lens
+    if window is not None:
+        mask &= kpos >= (lens - window)
+    mask = mask[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * mask
+    return torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()), m, p.sum(dim=-1)
 
 
 def ssd_reference(

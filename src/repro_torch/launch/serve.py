@@ -14,6 +14,17 @@ given:
 admits no speculative slot). :func:`serve_agent_loop` is the loop that
 does speculate: the port of the ``--with-llm`` demo in
 ``examples/speculative_serving.py``.
+
+The sequence-sharded split-KV decode has no flag here, as in the JAX
+package: the engine's ``mesh_info`` is its entry point. Build the engine
+and hand it to the loop::
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), sharded_decode_attn=True)
+    mi = MeshContext(make_local_mesh(4), ("data",), "model", 4, 1)  # 4 shards, one card
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=192, mesh_info=mi)
+    serve_agent_loop(True, cfg, engine, episodes, pattern_engine)
+
+(``kv_cache_dtype="int8"`` in the same ``replace`` gives the int8 cache.)
 """
 from __future__ import annotations
 

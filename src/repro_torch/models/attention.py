@@ -1,9 +1,14 @@
 """GQA attention block: init + full-sequence/prefill/decode application.
 
-Ported: the plain (bf16 or f32) KV cache, with or without a sliding window
-that fits the cache. Not ported yet, and raising NotImplementedError: the
-rolling-buffer sliding-window cache, the int8 KV cache, head padding and
-the sequence-sharded split-KV decode (``attn_decode_sharded``).
+Ported: the plain (bf16 or f32) and the int8 KV cache, with or without a
+sliding window that fits the cache, and the sequence-sharded split-KV
+decode (``attn_decode_sharded``) over a local mesh of shards on one device.
+Not ported yet, and raising NotImplementedError: the rolling-buffer
+sliding-window cache and head padding.
+
+An int8 cache is a (values int8 (B,Smax,KV,hd), scales f32 (B,Smax,KV))
+pair for each of K and V, quantized per head vector (``kv_quantize``) as in
+the JAX package. Decode updates every cache in place.
 """
 from __future__ import annotations
 
@@ -20,10 +25,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the attention variants this package does not have yet."""
     if cfg.head_pad_multiple:
         raise NotImplementedError("attention head padding is not ported")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache is not ported")
-    if cfg.sharded_decode_attn:
-        raise NotImplementedError("sequence-sharded decode attention is not ported")
 
 
 def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -55,6 +56,19 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q.reshape(b, s, H, hd), k.reshape(b, s, KV, hd), v.reshape(b, s, KV, hd)
 
 
+def kv_quantize(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head)-vector absmax int8 quantization over head_dim:
+    (values int8, scales f32 without the head_dim axis)."""
+    kf = k.float()
+    scale = torch.clamp(kf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def _roped_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     q, k, v = _qkv(p, x, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -70,9 +84,10 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str) -> to
     return o.reshape(b, s, -1) @ p["wo"]
 
 
-def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl: str
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill: returns (out (B,S,D), k_cache, v_cache (B,Smax,KV,hd))."""
+def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl: str):
+    """Prefill: returns (out (B,S,D), k_cache, v_cache (B,Smax,KV,hd)), each
+    cache an (int8 values, f32 scales) pair when ``cfg.kv_cache_dtype`` is
+    int8."""
     check_supported(cfg)
     b, s, _ = x.shape
     if cfg.sliding_window is not None and smax < s:
@@ -81,37 +96,146 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl:
     o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
     out = o.reshape(b, s, -1) @ p["wo"]
     pad = (0, 0, 0, 0, 0, smax - s)
-    return out, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    k_cache, v_cache = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    if cfg.kv_cache_dtype == "int8":
+        return out, kv_quantize(k_cache), kv_quantize(v_cache)
+    return out, k_cache, v_cache
 
 
-def attn_decode(
-    p: dict, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-    lengths: torch.Tensor, cfg: ModelConfig, *, impl: str,
-    active: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """One-token decode.  x (B,1,D); cache (B,Smax,KV,hd); lengths (B,) int32 =
-    tokens already in the cache.  Returns out (B,1,D).
+def _cache_smax(cache) -> int:
+    return (cache[0] if isinstance(cache, tuple) else cache).shape[1]
 
-    The caches are updated in place: each sequence's new K/V row is written
-    at its length (clamped to Smax-1), and where the bool mask ``active``
-    (B,) is given, only active sequences' rows change."""
-    check_supported(cfg)
-    b = x.shape[0]
-    smax = k_cache.shape[1]
-    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
-        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
+
+def _write_row(cache: torch.Tensor, index: tuple, new: torch.Tensor,
+               active: Optional[torch.Tensor]) -> None:
+    """cache[index] = new in place, where the bool mask ``active`` (B,) is
+    given only for active sequences."""
+    if active is not None:
+        keep = active.view(-1, *([1] * (new.dim() - 1)))
+        new = torch.where(keep, new, cache[index])
+    cache[index] = new
+
+
+def _append(k_cache, v_cache, k_new, v_new, index, active):
+    """Write each sequence's new K/V row at ``index`` in place: the values,
+    or for an int8 cache (a pair) the quantized values and their scales."""
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        if isinstance(cache, tuple):
+            for leaf, val in zip(cache, kv_quantize(new), strict=True):
+                _write_row(leaf, index, val, active)
+        else:
+            _write_row(cache, index, new, active)
+
+
+def _roped_decode_qkv(p, x, lengths, cfg):
     q, k, v = _qkv(p, x, cfg)                     # (B,1,H,hd)/(B,1,KV,hd)
     q = apply_rope(q, lengths[:, None], cfg.rope_theta)
     k = apply_rope(k, lengths[:, None], cfg.rope_theta)
+    return q[:, 0], k[:, 0], v[:, 0]
+
+
+def attn_decode(
+    p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor, cfg: ModelConfig, *,
+    impl: str, active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One-token decode.  x (B,1,D); cache (B,Smax,KV,hd), or with an int8
+    cache a (values, scales) pair; lengths (B,) int32 = tokens already in
+    the cache.  Returns out (B,1,D).
+
+    The caches are updated in place: each sequence's new K/V row is written
+    at its length (clamped to Smax-1), and where the bool mask ``active``
+    (B,) is given, only active sequences' rows change. An int8 cache is
+    dequantized to ``x.dtype`` for the attention, as in the JAX package."""
+    check_supported(cfg)
+    b = x.shape[0]
+    smax = _cache_smax(k_cache)
+    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
+        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
+    quant = cfg.kv_cache_dtype == "int8"
+    q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
     slot = torch.clamp(lengths, max=smax - 1).long()
-    bidx = torch.arange(b, device=x.device)
-    k_new, v_new = k[:, 0], v[:, 0]
-    if active is not None:
-        keep = active[:, None, None]
-        k_new = torch.where(keep, k_new, k_cache[bidx, slot])
-        v_new = torch.where(keep, v_new, v_cache[bidx, slot])
-    k_cache[bidx, slot] = k_new
-    v_cache[bidx, slot] = v_new
-    o = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths + 1,
+    index = (torch.arange(b, device=x.device), slot)
+    _append(k_cache, v_cache, k_new, v_new, index, active)
+    if quant:
+        k_cache, v_cache = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
+    o = ops.decode_attention(q.contiguous(), k_cache, v_cache, lengths + 1,
                              window=cfg.sliding_window, impl=impl)
     return o.reshape(b, 1, -1) @ p["wo"]
+
+
+# ======================================================================
+# Sequence-sharded split-KV flash-decode (JAX ``attn_decode_sharded``)
+#
+# The cache's sequence axis is cut into n_model shards of Smax / n_model
+# positions. Each shard attends over its own slice and only the per-head
+# softmax partials (m, l, acc) are combined. In the JAX package each shard
+# is a device of a shard_map; here the shards are views of one cache on one
+# card, the partials kernel runs once per shard, and pmax/psum become a max
+# and a sum over the shard axis.
+# ======================================================================
+
+def attn_decode_sharded(
+    p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor, cfg: ModelConfig,
+    mesh_info, *, impl: str = "auto", active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode with a sequence-sharded KV cache.  x (B,1,D); caches
+    (B,Smax,KV,hd) (or int8 (values, scales) pairs) cut on axis 1 into
+    ``mesh_info.n_model`` shards.  Returns out (B,1,D); the caches are
+    updated in place as in :func:`attn_decode`."""
+    check_supported(cfg)
+    b = x.shape[0]
+    quant = cfg.kv_cache_dtype == "int8"
+    smax = _cache_smax(k_cache)
+    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
+        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
+    KV, hd, H = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    nm = mesh_info.n_model
+    chunk = smax // nm
+
+    q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
+    # pre-scaled f32 q, (B, KV*grp, hd) in kv-major order as the kernel reads it
+    qg = (q.float() * hd ** -0.5).contiguous()
+    slot = torch.clamp(lengths, max=smax - 1).long()
+    eff_len = lengths + 1
+
+    # the new row lands on the one shard whose range holds its slot (the
+    # reference's in_rng test), at its local position there
+    index = (torch.arange(b, device=x.device), slot // chunk, slot % chunk)
+
+    def shards(c):  # (B, Smax, ...) -> (B, nm, chunk, ...), a view
+        if isinstance(c, tuple):
+            return tuple(map(shards, c))
+        return c.view(c.shape[0], nm, chunk, *c.shape[2:])
+
+    _append(shards(k_cache), shards(v_cache), k_new, v_new, index, active)
+    k_eff, v_eff = k_cache, v_cache
+    if quant:  # every shard attends over its dequantized slice, made in one pass
+        k_eff, v_eff = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
+
+    win = cfg.sliding_window
+    offs = torch.arange(0, smax, chunk, device=x.device, dtype=lengths.dtype)
+    eff_local = torch.clamp(eff_len[None, :] - offs[:, None], 0, chunk)      # (nm, B)
+    parts = [ops.decode_attention_partials(
+        qg, k_eff[:, r * chunk:(r + 1) * chunk], v_eff[:, r * chunk:(r + 1) * chunk],
+        eff_local[r], scale=1.0, window=win, impl=impl) for r in range(nm)]
+    acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))    # shard axis first
+    # combine the shards' softmax partials (the reference's pmax / psum)
+    m_g = m.amax(dim=0)
+    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    l_g = (denom * coef).sum(dim=0)
+    acc_g = (acc * coef[..., None]).sum(dim=0)
+    o = (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(x.dtype)
+    return o.reshape(b, 1, H * hd) @ p["wo"]
+
+
+def attn_decode_dispatch(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor,
+                         cfg: ModelConfig, mesh_info, *, impl: str,
+                         active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sharded split-KV path when enabled and applicable (the JAX
+    package's condition), else :func:`attn_decode`."""
+    if (cfg.sharded_decode_attn and mesh_info is not None
+            and mesh_info.n_model > 1
+            and _cache_smax(k_cache) % mesh_info.n_model == 0):
+        return attn_decode_sharded(p, x, k_cache, v_cache, lengths, cfg, mesh_info,
+                                   impl=impl, active=active)
+    return attn_decode(p, x, k_cache, v_cache, lengths, cfg, impl=impl, active=active)

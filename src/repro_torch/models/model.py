@@ -11,15 +11,21 @@ Design notes
   stacked arrays.
 * **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
 * **caches** keep the JAX package's layouts: ``k``/``v`` ``(L, B, Smax, KV,
-  hd)`` for the dense family, ``ssm_state`` = (conv_x, conv_B, conv_C, ssm)
-  stacked on a leading L axis for the SSM family, plus ``lengths`` (B,)
-  int32. :func:`decode_step` updates them in place.
+  hd)`` for the dense family (with ``kv_cache_dtype="int8"``, each a pair
+  of int8 values ``(L, B, Smax, KV, hd)`` and f32 scales ``(L, B, Smax,
+  KV)``), ``ssm_state`` = (conv_x, conv_B, conv_C, ssm) stacked on a
+  leading L axis for the SSM family, plus ``lengths`` (B,) int32.
+  :func:`decode_step` updates them in place.
+* **meshes**: :class:`MeshContext` describes a mesh of sequence shards
+  (``launch.mesh.make_local_mesh``); with ``cfg.sharded_decode_attn`` a
+  decode step cuts each layer's cache into ``n_model`` shards
+  (``attention.attn_decode_dispatch``).
 * entry points default to ``device="cuda"``; nothing moves to the CPU
   unless the caller asks for it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,15 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import embed_init, rms_norm
 
 _IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
+
+
+class MeshContext(NamedTuple):
+    """The JAX package's ``MeshContext`` (``moe.MoEMeshInfo``)."""
+    mesh: object                 # launch.mesh.LocalMesh
+    batch_axes: tuple            # e.g. ('data',)
+    model_axis: str              # 'model'
+    n_model: int
+    n_batch: int
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -160,6 +175,12 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
 # Cache init / prefill / decode
 # ======================================================================
 
+def _kv_smax(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     _check_family(cfg)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -168,18 +189,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
         return {"lengths": lengths,
                 "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    smax = min(max_len, cfg.sliding_window) if cfg.sliding_window is not None else max_len
-    shape = (cfg.n_layers, batch, smax, KV, hd)
-    return {
-        "lengths": lengths,
-        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-    }
+    shape = (cfg.n_layers, batch, _kv_smax(cfg, max_len), KV, hd)
+
+    def leaf():
+        if cfg.kv_cache_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=_dtype(cfg), device=device)
+
+    return {"lengths": lengths, "k": leaf(), "v": leaf()}
 
 
-def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int
-            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt; returns (last-position logits (B,Vp), filled cache)."""
+def _layer(leaf, i: int):
+    """Layer i of a K or V cache leaf: a tensor, or an int8 (values, scales) pair."""
+    return tuple(a[i] for a in leaf) if isinstance(leaf, tuple) else leaf[i]
+
+
+def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int,
+            mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt; returns (last-position logits (B,Vp), filled cache).
+    ``mesh_info`` is taken for the JAX signature; only the unported MoE
+    family reads it in a prefill."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
@@ -196,24 +226,31 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
         return lm_logits(params, cfg, h[:, -1]), cache
     cache = init_cache(cfg, b, max_len, device=h.device)
     cache["lengths"].fill_(s)
-    smax = cache["k"].shape[2]
+    smax = _kv_smax(cfg, max_len)
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
-        o, cache["k"][i], cache["v"][i] = attn_mod.attn_prefill(blk["attn"], x, cfg, smax,
-                                                                impl=impl)
+        o, kc, vc = attn_mod.attn_prefill(blk["attn"], x, cfg, smax, impl=impl)
+        for big, small in ((cache["k"], kc), (cache["v"], vc)):
+            if isinstance(big, tuple):      # int8 values and scales
+                for dst, src in zip(big, small, strict=True):
+                    dst[i] = src
+            else:
+                big[i] = small
         h = h + o
         h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
     return lm_logits(params, cfg, h[:, -1]), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.Tensor,
-                active: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                active: Optional[torch.Tensor] = None,
+                mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step.  tokens (B,) -> (logits (B,Vp) fp32, new cache).
 
     The new cache shares ``cache``'s K/V or state tensors, which are
     updated in place: K/V rows at each length, every layer's conv and SSM
     states. With the bool mask ``active`` (B,), inactive sequences keep
-    their rows, their states and their lengths."""
+    their rows, their states and their lengths. With ``mesh_info`` and
+    ``cfg.sharded_decode_attn``, attention runs sequence-sharded."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
@@ -234,8 +271,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
                                                   "ssm_state": states}
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
-        h = h + attn_mod.attn_decode(blk["attn"], x, cache["k"][i], cache["v"][i], lengths,
-                                     cfg, impl=impl, active=active)
+        h = h + attn_mod.attn_decode_dispatch(
+            blk["attn"], x, _layer(cache["k"], i), _layer(cache["v"], i), lengths, cfg,
+            mesh_info, impl=impl, active=active)
         h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
     new_cache = {"lengths": lengths + step, "k": cache["k"], "v": cache["v"]}
     return lm_logits(params, cfg, h[:, 0]), new_cache

@@ -11,8 +11,14 @@ Unlike the JAX engine, which masks the whole cache with ``jnp.where`` after
 every step and rewrites the whole cache tree when it admits a request, this
 engine updates the cache in place: a step writes only the new K/V rows or
 states of active slots (inactive slots keep theirs and their lengths), and
-``add_request`` copies every leaf of the prefilled cache into its slot,
-cast to the batched leaf's dtype as the JAX engine's ``_write_slot`` does.
+``add_request`` copies every leaf of the prefilled cache into its slot
+(for an int8 cache, the values and the scales), cast to the batched leaf's
+dtype as the JAX engine's ``_write_slot`` does.
+
+With ``mesh_info`` (``models.model.MeshContext`` over
+``launch.mesh.make_local_mesh(n)``) and a config with
+``sharded_decode_attn``, every decode step runs the sequence-sharded
+split-KV attention over n shards of the cache.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ class ServingEngine:
         max_batch: int = 8,
         max_len: int = 1024,
         eos_id: int = 1,
+        mesh_info: Optional[model_mod.MeshContext] = None,
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -56,6 +63,7 @@ class ServingEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
+        self.mesh_info = mesh_info
         self.cache = model_mod.init_cache(cfg, max_batch, max_len, device=self.device)
         self.slots = [Slot(i) for i in range(max_batch)]
         self.pending_tokens = np.zeros((max_batch,), np.int32)
@@ -88,11 +96,12 @@ class ServingEngine:
         s.done = False
         toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
-                                           self.max_len)
+                                           self.max_len, mesh_info=self.mesh_info)
         for name, leaf in cache1.items():
             if name == "lengths":
                 continue
-            # every other leaf is (L, batch, ...): k/v, or the ssm state tuple
+            # every other leaf is (L, batch, ...): k/v, an int8 (values, scales)
+            # pair, or the ssm state tuple
             pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
                 else ((self.cache[name], leaf),)
             for big, small in pairs:
@@ -124,7 +133,7 @@ class ServingEngine:
         tokens = torch.as_tensor(self.pending_tokens, dtype=torch.int64).to(self.device)
         active_t = torch.as_tensor(active).to(self.device)
         logits, self.cache = model_mod.decode_step(self.params, self.cfg, self.cache, tokens,
-                                                   active=active_t)
+                                                   active=active_t, mesh_info=self.mesh_info)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         out: Dict[int, int] = {}
         self.steps_executed += 1

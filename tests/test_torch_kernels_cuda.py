@@ -14,7 +14,11 @@ at mamba2-2.7b's prompt lengths (3 and 19 tokens, 80 heads) and at
 tests/test_kernels.py's lengths over one, two and sixteen chunks, for one
 and two groups, both supported state sizes, with and without an initial
 state; float32 at 3e-4 (tests/test_kernels.py's SSD tolerance), bfloat16
-at 2e-2.
+at 2e-2. The split-KV partials are held on 4 slices of a cache, passed as
+views of it, with f32 q against bf16 and f32 caches: the qwen2-7b sharded
+serving step (Smax 192, slices of 48 that are full, partial and empty) and
+Smax 4096 with and without a window; combined, they are held against
+decode attention over the whole cache.
 """
 import numpy as np
 import pytest
@@ -98,6 +102,89 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 4, 128), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q, q, q, impl="kernel")
+
+
+def test_decode_kernel_ignores_lengths_past_the_cache(cuda_device):
+    """A length past Smax attends to the Smax keys that exist, as the plain
+    version does, also where Smax is not a multiple of the 32-key tile."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (3, 8, 128), torch.float32, cuda_device)
+    kc, vc = (_randn(rng, (3, 100, 2, 128), torch.float32, cuda_device) for _ in range(2))
+    lens = torch.tensor([100, 101, 131], dtype=torch.int32, device=cuda_device)
+    want = ops.decode_attention(q, kc, vc, lens, impl="plain")
+    got = ops.decode_attention(q, kc, vc, lens, impl="kernel")
+    torch.cuda.synchronize()
+    _close(got, want, torch.float32)
+
+
+PARTIALS_CASES = [
+    # (Smax, lengths of the 4 sequences, window): 4 slices of Smax / 4
+    (192, [65, 10, 192, 150], None),     # qwen2-7b's step: slices full, partial (17), empty
+    (4096, [4096, 1, 2500, 1024], None),
+    (4096, [4096, 1, 2500, 1024], 1024),
+]
+
+
+def _partials_inputs(rng, smax, lengths, dtype, device):
+    q = _randn(rng, (4, 28, 128), torch.float32, device) * 128 ** -0.5
+    kc, vc = (_randn(rng, (4, smax, 4, 128), dtype, device) for _ in range(2))
+    return q, kc, vc, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("smax,lengths,window", PARTIALS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partials_kernel_matches_plain_on_views(cuda_device, smax, lengths, window,
+                                                       dtype):
+    q, kc, vc, lens = _partials_inputs(np.random.default_rng(13), smax, lengths, dtype,
+                                       cuda_device)
+    chunk = smax // 4
+    parts = []
+    for lo in range(0, smax, chunk):
+        k_view, v_view = kc[:, lo:lo + chunk], vc[:, lo:lo + chunk]   # read in place
+        assert not k_view.is_contiguous()
+        eff = torch.clamp(lens - lo, 0, chunk)
+        want = ops.decode_attention_partials(q, k_view, v_view, eff, scale=1.0, window=window,
+                                             impl="plain")
+        got = ops.decode_attention_partials(q, k_view, v_view, eff, scale=1.0, window=window,
+                                            impl="kernel")
+        torch.cuda.synchronize()
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            assert torch.isfinite(g).all()
+            _close(g, w, dtype)
+        parts.append(got)
+    empty = [(r, b) for r, lo in enumerate(range(0, smax, chunk)) for b in range(4)
+             if lengths[b] <= lo]
+    for r, b in empty:
+        assert (parts[r][1][b] == -1e30).all() and (parts[r][2][b] == 0).all()
+        assert (parts[r][0][b] == 0).all()
+    if window is None:      # combined, the slices give attention over the whole cache
+        acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))
+        coef = torch.where(torch.isfinite(m), torch.exp(m - m.amax(0)), 0.0)
+        out = (acc * coef[..., None]).sum(0) / torch.clamp((denom * coef).sum(0)[..., None],
+                                                           min=1e-30)
+        want = ops.decode_attention(q, kc, vc, lens, scale=1.0, impl="plain")
+        _close(out.reshape(4, 28, 128), want, dtype)
+
+
+def test_decode_partials_kernel_rejects_what_it_does_not_take(cuda_device):
+    rng = np.random.default_rng(14)
+    q, kc, vc, lens = _partials_inputs(rng, 192, [65, 10, 192, 150], torch.bfloat16,
+                                       cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ops.decode_attention_partials(q.bfloat16(), kc, vc, lens, impl="kernel")
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention_partials(q, kc, vc, lens.long(), impl="kernel")
+    wide = torch.cat([kc, kc], dim=2)[:, :, :4]         # rows 8 heads apart
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        ops.decode_attention_partials(q, wide, wide, lens, impl="kernel")
+    with pytest.raises(ValueError, match="is torch.float32"):
+        ops.decode_attention_partials(q, kc, vc.float(), lens, impl="kernel")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention_partials(q[..., :64].contiguous(), kc[..., :64], vc[..., :64],
+                                      lens, impl="kernel")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.decode_attention_partials(q.cpu(), kc.cpu(), vc.cpu(), lens.cpu(), impl="kernel")
 
 
 SSD_SHAPES = [
