@@ -5,10 +5,14 @@
 
 Phases, one line of output each (or more):
   1. the card's name and power limit (nvidia-smi), then the build of the
-     hand-written CUDA kernels from src/repro_torch/kernels/csrc;
+     hand-written CUDA kernels from src/repro_torch/kernels/csrc, with
+     ptxas's registers, spills and shared memory per kernel instantiation
+     and, where the toolkit has cuobjdump, the tensor-core (HMMA)
+     instructions in each kernel's SASS;
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
-     serving paths' shapes and at long shapes, with its time, the plain
+     serving paths' shapes and at long shapes, the attention kernels also
+     against a second call of themselves (bitwise), with its time, the plain
      version's time, the time of one library call computing the same
      function (scaled_dot_product_attention for attention, a yardstick the
      port never calls; no single PyTorch call computes the SSD scan or
@@ -37,6 +41,8 @@ or on any failure. Imports nothing of JAX or of the JAX package.
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -78,6 +84,57 @@ def _time_ms(fn, iters, flush):
     return total / iters
 
 
+def _demangle(names):
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not names or not os.path.exists(tool):
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    # drop the namespace, the casts of template arguments and the parameter list
+    return [re.sub(r"\((?:int|bool|long)\)", "", o.replace("(anonymous namespace)::", ""))
+            .split("(")[0].removeprefix("void ") for o in out]
+
+
+def ptxas_report(log):
+    """Registers, spill bytes and static shared memory of each kernel
+    instantiation, from nvcc's ``-Xptxas -v`` report."""
+    rows, fn = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = {"fn": ln.split("'")[1]}
+            rows.append(fn)
+        elif fn is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            fn["spill_bytes"] = int(words[words.index("spill") - 2]) + int(words[-4])
+        elif fn is not None and "Used " in ln:
+            words = ln.replace(",", "").split()
+            fn["registers"] = int(words[words.index("registers") - 1])
+            fn["smem_static"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+    for row, name in zip(rows, _demangle([r["fn"] for r in rows]), strict=True):
+        row["fn"] = name
+    return rows
+
+
+def sass_hmma(library):
+    """HMMA (tensor-core) instructions in each kernel of a built library's
+    SASS, or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return dict(zip(_demangle(list(counts)), counts.values(), strict=True))
+
+
 def _bound(n_bytes, flops, dtype):
     by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -104,6 +161,8 @@ def flash_case(ops, gen, flush, b, s, h, kv, d, dtype, window, timed):
     want = ops.flash_attention(q, k, v, impl="plain", **kw)
     got = ops.flash_attention(q, k, v, impl="kernel", **kw)
     torch.cuda.synchronize()
+    assert torch.equal(got, ops.flash_attention(q, k, v, impl="kernel", **kw)), \
+        f"flash_attention {[b, s, h, kv, d]}: two calls differ"
     case = {"shape": [b, s, h, kv, d], "dtype": str(dtype).split(".")[1], "window": window,
             "max_abs_err": _check(f"flash_attention {[b, s, h, kv, d]} window {window}",
                                   got, want, dtype)}
@@ -141,6 +200,8 @@ def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
     got = ops.decode_attention(q, kc, vc, lengths, impl="kernel", window=window)
     torch.cuda.synchronize()
     lens = lengths.tolist()
+    again = ops.decode_attention(q, kc, vc, lengths, impl="kernel", window=window)
+    assert torch.equal(got, again), f"decode_attention {[b, smax]} lengths {lens}: two calls differ"
     case = {"shape": [b, h, kv, d, smax], "dtype": str(dtype).split(".")[1], "window": window,
             "lengths": lens,
             "max_abs_err": _check(f"decode_attention {[b, h, kv, d, smax]} lengths {lens}",
@@ -170,7 +231,7 @@ def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
     return case
 
 
-def partials_case(ops, gen, flush, smax, lengths, dtype, window, timed):
+def partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed):
     """The split-KV partials over the 4 slices of a (4, smax, 4, 128) cache
     (qwen2-7b's batch, kv heads and head_dim; 28 query heads), each slice a
     view of the cache, with f32 pre-scaled q as the sharded decode passes
@@ -191,6 +252,9 @@ def partials_case(ops, gen, flush, smax, lengths, dtype, window, timed):
         want = ops.decode_attention_partials(q, kv_k, kv_v, eff, impl="plain", **kw)
         got = ops.decode_attention_partials(q, kv_k, kv_v, eff, impl="kernel", **kw)
         torch.cuda.synchronize()
+        again = ops.decode_attention_partials(q, kv_k, kv_v, eff, impl="kernel", **kw)
+        assert all(torch.equal(a, g) for a, g in zip(again, got, strict=True)), \
+            f"decode_attention_partials slice {r}: two calls differ"
         for name, g, w in zip(("acc", "m", "l"), got, want, strict=True):
             assert torch.isfinite(g).all(), f"partials {name} of slice {r} is not finite"
             err = max(err, _check(f"decode_attention_partials {[b, smax, h, kv, d]} slice {r} "
@@ -201,9 +265,8 @@ def partials_case(ops, gen, flush, smax, lengths, dtype, window, timed):
     case = {"shape": [b, smax, h, kv, d], "dtype": str(dtype).split(".")[1], "window": window,
             "lengths": lengths, "slice_lengths": effs, "max_abs_err": err}
     if window is None:
-        acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))
-        coef = torch.where(torch.isfinite(m), torch.exp(m - m.amax(0)), 0.0)
-        out = (acc * coef[..., None]).sum(0) / torch.clamp((denom * coef).sum(0)[..., None], min=1e-30)
+        acc, _, denom = da.combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
+        out = acc / torch.clamp(denom[..., None], min=1e-30)
         whole = ops.decode_attention(q, kc, vc, lens, impl="plain", **kw)
         case["combined_err"] = _check(f"decode_attention_partials {[b, smax]} combined",
                                       out.reshape(b, h, d), whole, dtype)
@@ -479,10 +542,13 @@ def main():
     # ---- phase 1: build -------------------------------------------------
     t0 = time.time()
     logs = _build.build()
-    regs = {n: sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
-                       if "Used " in ln}) for n, log in logs.items()}
-    print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)} "
-          f"(ptxas per instantiation: {regs})", flush=True)
+    print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)}", flush=True)
+    for name, log in logs.items():
+        print(f"phase 1 {name} ptxas: {json.dumps(ptxas_report(log))}", flush=True)
+        hmma = sass_hmma(_build.library_path(name))
+        if hmma is not None:
+            print(f"phase 1 {name} HMMA instructions per kernel in the SASS: "
+                  f"{json.dumps(hmma)}", flush=True)
 
     # ---- phase 2: kernels against their plain versions ------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -494,7 +560,7 @@ def main():
         for s, window in ((3, None), (19, None), (2048, None), (2048, 512)):
             cases["flash_attention"].append(
                 flash_case(ops, gen, flush, 1, s, 28, 4, 128, dtype, window, timed))
-        for smax, window in ((192, None), (4096, 1024)):
+        for smax, window in ((192, None), (4096, 1024), (4096, None)):
             cases["decode_attention"].append(
                 decode_case(ops, gen, flush, 4, 28, 4, 128, smax, dtype, window, timed))
         # 4 slices of qwen2-7b's sharded serving cache (Smax 192, slices of 48
@@ -504,7 +570,7 @@ def main():
                 (4096, [4096, 1, 2500, 1024], None, timed),
                 (4096, [4096, 1, 2500, 1024], 1024, False)):
             cases["decode_attention_partials"].append(
-                partials_case(ops, gen, flush, smax, lengths, dtype, window, timed_p))
+                partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed_p))
         # mamba2-2.7b's prompts of 3 and 19 tokens, a ragged second chunk with
         # an initial state over two groups, and a long prompt
         for s, g, with_h0, timed_ssd in ((3, 1, False, False), (19, 1, False, timed),
@@ -534,7 +600,7 @@ def main():
     launches["flash_attention"] = counts["flash_attention"]
     launches["decode_attention"] = counts["decode_attention"]
     _profile_steps(M, params, engine, cfg.name, ("decode_attention", "decode_attention_kernel"),
-                   ("flash_attention", "flash_attention_kernel"))
+                   ("flash_attention", "flash_attention_bf16_kernel"))
     check_model(M, cfg, params, engine, cfg.name)
     del engine
 

@@ -4,9 +4,11 @@ Each source ``csrc/<name>.cu`` compiles into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/`` at the root of the checkout, named by a hash of
 its source and the compiler flags: a changed source rebuilds, an unchanged
-one loads at once. A failed build raises with nvcc's output. Nothing is
-built when a module is imported, only at a kernel's first launch or when a
-caller asks for :func:`build`.
+one loads at once. nvcc's report (registers, spills and shared memory of
+each instantiation, from ``-Xptxas -v``) is kept beside the library as
+``.log``, so it can be read after a cached build too. A failed build raises
+with nvcc's output. Nothing is built when a module is imported, only at a
+kernel's first launch or when a caller asks for :func:`build`.
 """
 from __future__ import annotations
 
@@ -42,10 +44,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where nvcc's report on the library of ``csrc/<name>.cu`` is kept."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source that is not built yet, one nvcc each, all
-    started together. Returns nvcc's output per compiled source (register
-    and shared-memory use, from ``-Xptxas -v``); raises if any build fails."""
+    started together. Returns nvcc's report for every named source, built
+    now or before (register, spill and shared-memory use, from ``-Xptxas
+    -v``); raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name in names:
@@ -61,12 +69,14 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     for name, (proc, tmp, out) in running.items():
         logs[name], _ = proc.communicate()
         if proc.returncode == 0:
+            report_path(name).write_text(logs[name])
             os.replace(tmp, out)
         else:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{logs[name]}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    return logs
+    return {name: report_path(name).read_text() if report_path(name).exists() else ""
+            for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,35 +21,65 @@
 //
 // Bound on the H100: bytes. Each K and V element up to the length is read
 //   once per step and used for 2 * grp operations, far below the ~295
-//   operations per byte at which bf16 tensor cores would bind. A partials
-//   slice of the qwen2-7b serving step (4 sequences, 48 positions, 4 kv
-//   heads, bf16) reads at most 393 KB of cache: about 0.15 us at 3.35 TB/s.
+//   operations per byte at which bf16 tensor cores would bind. The qwen2-7b
+//   serving step (4 sequences, Smax 192, 4 kv heads, bf16) reads at most
+//   786 KB of cache: about 0.2 us at 3.35 TB/s. What held the first version
+//   (one block per (kv head, batch) walking 32-key tiles in series, 16
+//   blocks on 132 SMs, ~4.5 us a tile) was serial latency, not bytes.
 //
-// Design: one block per (kv head, batch) holding all grp query rows of the
-//   group, so each cache byte is read from device memory once. The TPU
-//   kernel's sequential sequence grid axis is a loop inside the block over
-//   32-key tiles, from the window's first tile to the length; tiles past the
-//   length are never loaded. A tile arrives as 16-byte loads, all issued
-//   before the first is used, since with few blocks the bytes in flight per
-//   block set the rate (cache rows must be 16-byte aligned). Lengths are
-//   read on the device, so the host never waits. D threads, one accumulator
-//   column each for every query row (grp <= 16, any value, not only powers
-//   of two). One warp per query row runs the online softmax over the 32
-//   scores of a tile. The cache is addressed with its own batch stride, so
-//   a slice of the sequence axis is read in place as a view of the whole
-//   cache, with no copy. q may be fp32 against a bf16 cache (the partials
-//   caller pre-scales q in fp32). At the serving batch, B * KV = 16 blocks
-//   occupy 16 of the 132 SMs per launch; the partials entry, launched once
-//   per sequence slice, is the split that raises that count, and one grid
-//   over every slice is the next step.
+// Design: split-KV flash-decode in one launch. The grid is (split, kv head,
+//   batch). Each row's visited keys, from its own first key max(0, len -
+//   window) (or 0) to min(len, Smax), are cut into splits of kps keys
+//   (split_plan in decode_attention.py, fixed from Smax and the window on
+//   the host; lengths are read on the device). A block holds the whole GQA
+//   group (grp <= 16) as the 16 rows of an mma tile, so each cache byte is
+//   read once. Its 4 warps own 16-key chunks of the split in turn, each with
+//   its own ring of 2 stages in shared memory, filled by 16-byte cp.async
+//   (rows past the length are zero-filled, never read); with kps <= 128 (any
+//   cache up to 8192 keys) all of a split's chunks are in flight before the
+//   first is used; above, the rings cycle. Each warp
+//   keeps its own online-softmax state, so no block barrier falls inside
+//   the key loop. For a bf16 cache both products are mma.sync m16n8k16 bf16
+//   -> fp32: S = Q K^T from ldmatrix'd K, then P V with P kept in registers
+//   as the A operand and V read by ldmatrix.trans. An fp32 query (the
+//   partials' pre-scaled q) enters as a bf16 pair hi + lo, two products, so
+//   it keeps ~16 bits. The f32 cache (tests and chip_smoke only) uses scalar
+//   FMA on the same fragment layout: TF32 would miss its 2e-5 tolerance. The
+//   warps merge once, through shared memory; a split writes its partials to
+//   scratch and the last block of a (batch, kv head) to arrive (threadfence,
+//   then an atomicAdd on that row's counter) merges every split in split
+//   order, which makes the result bitwise deterministic, writes the output
+//   and sets the counter back to 0. Only the splits that hold keys of the
+//   row (known from its length on the device) take part: the blocks of the
+//   others leave at once, and a row with keys in one split (or none) has
+//   its block write the output itself. Loads that a block waits on (q, the splits' partials)
+//   are issued together, so each costs one trip to memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BK = 32;     // keys per tile == warp size
-constexpr int MAXG = 16;   // largest GQA group handled
+constexpr int D = 128;     // head_dim, the only one built
+constexpr int NW = 4;      // warps per block
+constexpr int NT = NW * 32;
+constexpr int CK = 16;     // keys per warp chunk (one mma k-step of P V)
+constexpr int NST = 2;     // ring stages per warp
+constexpr int MAXG = 16;   // largest GQA group: the 16 rows of an mma tile
+constexpr int MAX_SPLITS = 64;  // the last block stages every split's m and l
 constexpr float NEG_INF = -1e30f;
+
+// padded row stride of a staged cache row: 16 more bytes, so the 8 rows an
+// ldmatrix phase reads fall into distinct banks
+template <typename T> __host__ __device__ constexpr int row_stride() { return D + 16 / (int)sizeof(T); }
+template <typename T> __host__ __device__ constexpr int ring_bytes() {
+  return NW * NST * 2 * CK * row_stride<T>() * (int)sizeof(T);
+}
+constexpr int QS_BYTES = MAXG * D * 4;
+constexpr int MERGE_BYTES = (NW * MAXG * D + 2 * NW * MAXG) * 4;
+static_assert(MERGE_BYTES <= ring_bytes<__nv_bfloat16>(), "merge area overlays the ring");
+static_assert((2 * MAX_SPLITS + 2) * MAXG * 4 <= MERGE_BYTES, "the splits' m and l fit");
+template <typename T> __host__ __device__ constexpr int smem_bytes() { return QS_BYTES + ring_bytes<T>(); }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -60,180 +90,453 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src_bytes 0 zero-fills and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Accumulator fragments of the m16n8 tiles (lane = 4 g + t): element e of
+// a thread's 4 sits at row g + 8 (e >> 1), column 2 t + (e & 1). An A
+// fragment's register e holds row g + 8 (e & 1), columns 2 t + 8 (e >> 1)
+// and the next; a B fragment's two hold rows 2 t (+1) and 2 t + 8 (+1) of
+// column g.
+
+// Q fragments (the A operand over 8 k-steps of 16 head dims) from the
+// staged fp32 q: hi = bf16(q), and with an fp32 query lo = bf16(q - hi).
+template <bool LO>
+struct QFrags {
+  uint32_t hi[D / 16][4];
+  uint32_t lo[LO ? D / 16 : 1][4];
+  __device__ __forceinline__ void load(const float* qs, int g, int t) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e & 1), col = ks * 16 + 2 * t + 8 * (e >> 1);
+        const float x0 = qs[row * D + col], x1 = qs[row * D + col + 1];
+        hi[ks][e] = pack_bf16(x0, x1);
+        if constexpr (LO) {
+          lo[ks][e] = pack_bf16(x0 - __bfloat162float(__float2bfloat16(x0)),
+                                x1 - __bfloat162float(__float2bfloat16(x1)));
+        }
+      }
+    }
+  }
+};
+
+// S (16 query rows x 16 keys, two n8 tiles) of one staged chunk.
+template <bool LO>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>& qf,
+                                             const __nv_bfloat16* ks, const float*, int lane) {
+  constexpr int RS = row_stride<__nv_bfloat16>();
+  const __nv_bfloat16* base = ks + ((lane >> 4) * 8 + (lane & 7)) * RS + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kstep = 0; kstep < D / 16; ++kstep) {
+    uint32_t b[4];  // b0, b1 of keys 0-7, then of keys 8-15
+    ldmatrix_x4(b, base + kstep * 16);
+    mma_bf16(s[0], qf.hi[kstep], b[0], b[1]);
+    mma_bf16(s[1], qf.hi[kstep], b[2], b[3]);
+    if constexpr (LO) {
+      mma_bf16(s[0], qf.lo[kstep], b[0], b[1]);
+      mma_bf16(s[1], qf.lo[kstep], b[2], b[3]);
+    }
+  }
+}
+template <bool LO>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>&,
+                                             const float* ks, const float* qs, int lane) {
+  constexpr int RS = row_stride<float>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    const float q0 = qs[g * D + c], q1 = qs[(g + 8) * D + c];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float k0 = ks[(nt * 8 + 2 * t) * RS + c], k1 = ks[(nt * 8 + 2 * t + 1) * RS + c];
+      s[nt][0] += q0 * k0;
+      s[nt][1] += q0 * k1;
+      s[nt][2] += q1 * k0;
+      s[nt][3] += q1 * k1;
+    }
+  }
+}
+
+// acc (16 rows x 128 dims, 16 n8 tiles) += P (16 x 16 keys) V (16 keys x 128)
+__device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p)[2][4],
+                                         const __nv_bfloat16* vs, int lane) {
+  constexpr int RS = row_stride<__nv_bfloat16>();
+  const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                         pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+  const __nv_bfloat16* base = vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];  // b0, b1 of dims 16 np .. +7, then of dims +8 .. +15
+    ldmatrix_x4_trans(b, base + np * 16);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+__device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p)[2][4],
+                                         const float* vs, int lane) {
+  constexpr int RS = row_stride<float>();
+  const int t = lane & 3;
+#pragma unroll
+  for (int key = 0; key < CK; ++key) {
+    const int src = (lane & ~3) | ((key & 7) >> 1);  // the quad lane holding this key
+    const float pg = __shfl_sync(0xffffffffu, p[key >> 3][key & 1], src);
+    const float pg8 = __shfl_sync(0xffffffffu, p[key >> 3][2 + (key & 1)], src);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const float2 vv = *reinterpret_cast<const float2*>(vs + key * RS + nt * 8 + 2 * t);
+      acc[nt][0] += pg * vv.x;
+      acc[nt][1] += pg * vv.y;
+      acc[nt][2] += pg8 * vv.x;
+      acc[nt][3] += pg8 * vv.y;
+    }
+  }
+}
+
 // TQ: the query's type; T: the cache's; TO: the output's (fp32 for
 // PARTIALS). The cache is (B, Smax, KV, D) with rows of KV * D elements and
 // sequences batch_stride elements apart (Smax * KV * D for a whole cache,
-// more for a slice of one).
-template <typename TQ, typename T, typename TO, int D, bool PARTIALS>
-__global__ void __launch_bounds__(D) decode_attention_kernel(
+// more for a slice of one). part holds each split's acc (grp x D), then
+// every split's m and l; counter one int per (batch, kv head).
+template <typename TQ, typename T, typename TO, bool PARTIALS>
+__global__ void __launch_bounds__(NT) decode_attention_kernel(
     const TQ* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, TO* __restrict__ o, float* __restrict__ m_out,
-    float* __restrict__ l_out, int Smax, long batch_stride, int H, int KV, int window,
-    float scale) {
-  constexpr int NT = D;        // threads per block, one output column each
-  constexpr int DP = D + 1;    // padded row stride of the k tile
-  constexpr int NW = NT / 32;  // warps per block
-  constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int CPR = D / EPC;            // 16-byte chunks per cache row
-  constexpr int CPT = BK * CPR / NT;      // chunks of K (and of V) per thread per tile
-  static_assert(BK * CPR % NT == 0, "tile chunks must divide over the threads");
-  __shared__ float qs[MAXG * D];
-  __shared__ float ks[BK * DP];
-  __shared__ float vs[BK * D];
-  __shared__ float ps[MAXG * BK];  // scores, then probabilities
-  __shared__ float m_s[MAXG];
-  __shared__ float l_s[MAXG];
-  __shared__ float corr_s[MAXG];
+    float* __restrict__ l_out, float* __restrict__ part, int* __restrict__ counter, int Smax,
+    long batch_stride, int H, int KV, int window, float scale, int kps) {
+  constexpr int RS = row_stride<T>();
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = D / EPC;         // copies per cache row
+  constexpr bool QLO = sizeof(TQ) == 4 && sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+  float* qs = reinterpret_cast<float*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + QS_BYTES);
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x;
   const int grp = H / KV;
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int lane = t % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
   const int len = lengths[b];
+  const int k_end = min(len, Smax);  // keys past Smax do not exist, whatever the length says
+  const int start = window >= 0 ? max(0, len - window) : 0;
+  // the splits this row has keys in; a row with none keeps split 0, which
+  // writes the empty state. The other blocks of the row leave at once.
+  const int n_real = min(max(1, (k_end - start + kps - 1) / kps), n_splits);
+  if (split >= n_real) return;
+  const int lo = start + split * kps;
+  const int hi = min(lo + kps, k_end);  // this split's keys: [lo, hi)
   const long kv_stride = (long)KV * D;
-  const TQ* qb = q + ((long)b * H + (long)kvh * grp) * D;
   const T* kb = k + (long)b * batch_stride + (long)kvh * D;
   const T* vb = v + (long)b * batch_stride + (long)kvh * D;
 
-  for (int g = 0; g < grp; ++g) qs[g * D + t] = to_float(qb[g * D + t]) * scale;
-  if (t < grp) {
-    m_s[t] = NEG_INF;
-    l_s[t] = 0.f;
+  // this warp's chunks of the split: c = warp, warp + NW, ...; each starts
+  // below hi, so holds at least one key
+  const int n_chunks = hi > lo ? (hi - lo + CK - 1) / CK : 0;
+  const int mine = n_chunks > warp ? (n_chunks - warp + NW - 1) / NW : 0;
+  T* wring = ring + warp * NST * 2 * CK * RS;
+  auto issue = [&](int i) {
+    const int key0 = lo + (warp + i * NW) * CK;
+    T* ks = wring + (i % NST) * 2 * CK * RS;
+    T* vs = ks + CK * RS;
+#pragma unroll
+    for (int j = 0; j < CK * CPR / 32; ++j) {
+      const int e = lane + 32 * j, r = e / CPR, col = e % CPR * EPC;
+      const bool in = key0 + r < hi;
+      const long off = in ? (key0 + r) * kv_stride + col : 0;
+      cp_async16(ks + r * RS + col, kb + off, in);
+      cp_async16(vs + r * RS + col, vb + off, in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NST; ++i) {
+    if (i < mine) issue(i);
+    cp_async_commit();
   }
-  float acc[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
 
-  // keys past Smax do not exist, whatever the length says
-  const int k_begin = window >= 0 ? max(0, len - window) / BK * BK : 0;
-  const int k_end = min(len, Smax);
+  // every load of q is issued before the first store, so the block waits
+  // for one trip to memory, not one per row
+  const TQ* qb = q + ((long)b * H + (long)kvh * grp) * D;
+  float qv[MAXG * D / NT];
+#pragma unroll
+  for (int j = 0; j < MAXG * D / NT; ++j) {
+    const int i = tid + j * NT;
+    qv[j] = i < grp * D ? to_float(qb[i]) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < MAXG * D / NT; ++j) qs[tid + j * NT] = qv[j];
+  __syncthreads();
+  QFrags<QLO> qf;
+  if constexpr (sizeof(T) == 2) qf.load(qs, g, t);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // issue every 16-byte load of the tile before the first store, so the
-    // block keeps CPT * 2 loads per thread in flight from device memory
-    uint4 kbuf[CPT], vbuf[CPT];
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  float acc[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = t + i * NT, r = c / CPR, col = c % CPR * EPC;
-      const bool in = k0 + r < Smax;
-      kbuf[i] = in ? *reinterpret_cast<const uint4*>(kb + (k0 + r) * kv_stride + col)
-                   : make_uint4(0u, 0u, 0u, 0u);
-      vbuf[i] = in ? *reinterpret_cast<const uint4*>(vb + (k0 + r) * kv_stride + col)
-                   : make_uint4(0u, 0u, 0u, 0u);
-    }
-    __syncthreads();  // the previous tile is consumed; q, m and l are staged
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<NST - 1>();
+    __syncwarp();
+    const T* ks = wring + (i % NST) * 2 * CK * RS;
+    const T* vs = ks + CK * RS;
+    const int key0 = lo + (warp + i * NW) * CK;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    chunk_scores(s, qf, ks, qs, lane);
+    float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = t + i * NT, r = c / CPR, col = c % CPR * EPC;
-      const T* kx = reinterpret_cast<const T*>(&kbuf[i]);
-      const T* vx = reinterpret_cast<const T*>(&vbuf[i]);
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) {
-        ks[r * DP + col + e] = to_float(kx[e]);
-        vs[r * D + col + e] = to_float(vx[e]);
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = key0 + nt * 8 + 2 * t + (e & 1) < hi;
+        s[nt][e] = ok ? s[nt][e] * scale : NEG_INF;
+        if (e < 2) mx0 = fmaxf(mx0, s[nt][e]);
+        else mx1 = fmaxf(mx1, s[nt][e]);
       }
-    }
-    __syncthreads();
-
-    for (int i = t; i < grp * BK; i += NT) {
-      const int g = i / BK, j = i % BK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) s += qs[g * D + c] * ks[j * DP + c];
-      const int kpos = k0 + j;
-      const bool ok = kpos < k_end && (window < 0 || kpos >= len - window);
-      ps[g * BK + j] = ok ? s : NEG_INF;
-    }
-    __syncthreads();
-
-    // every tile from k_begin to k_end holds at least one unmasked key, so
-    // m_new is a real score and masked keys get p = exp(-1e30 - m_new) = 0
-    for (int g = warp; g < grp; g += NW) {
-      const float s = ps[g * BK + lane];
-      float mx = s;
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = expf(s - m_new);
-      float sum = p;
+    for (int w = 1; w < 4; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    // the chunk's first key is real, so mn0 and mn1 are real scores
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      ps[g * BK + lane] = p;
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr_s[g] = c;
-        l_s[g] = l_s[g] * c + sum;
-        m_s[g] = m_new;
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nt][e] == NEG_INF ? 0.f : expf(s[nt][e] - (e < 2 ? mn0 : mn1));
+        s[nt][e] = p;
+        if (e < 2) ps0 += p;
+        else ps1 += p;
       }
-    }
-    __syncthreads();
-
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < grp) {
-        float a = acc[g] * corr_s[g];
-        for (int j = 0; j < BK; ++j) a += ps[g * BK + j] * vs[j * D + t];
-        acc[g] = a;
-      }
+    for (int nt = 0; nt < D / 8; ++nt) {
+      acc[nt][0] *= c0;
+      acc[nt][1] *= c0;
+      acc[nt][2] *= c1;
+      acc[nt][3] *= c1;
     }
+    chunk_pv(acc, s, vs, lane);
+    __syncwarp();  // every lane is done with this stage before it is refilled
+    if (i + NST < mine) issue(i + NST);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {  // each lane summed its own columns
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+
+  // merge the warps through shared memory (over the ring, now consumed)
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(smem + QS_BYTES);
+  float* wm = wacc + NW * MAXG * D;
+  float* wl = wm + NW * MAXG;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(wacc + (warp * MAXG + g) * D + c) = make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(wacc + (warp * MAXG + g + 8) * D + c) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+  if (t == 0) {
+    wm[warp * MAXG + g] = m0;
+    wm[warp * MAXG + g + 8] = m1;
+    wl[warp * MAXG + g] = l0;
+    wl[warp * MAXG + g + 8] = l1;
   }
   __syncthreads();
 
   const long row0 = (long)b * H + (long)kvh * grp;  // (b, kvh, 0) of (B, KV, grp)
-  TO* ob = o + row0 * D;
-  if constexpr (PARTIALS) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < grp) ob[g * D + t] = from_float<TO>(acc[g]);
-    if (t < grp) {
-      m_out[row0 + t] = m_s[t];
-      l_out[row0 + t] = l_s[t];
+  auto emit = [&](int gi, float a, float mm, float ll) {
+    if constexpr (PARTIALS) {
+      o[(row0 + gi) * D + tid] = from_float<TO>(a);
+      if (tid == 0) {
+        m_out[row0 + gi] = mm;
+        l_out[row0 + gi] = ll;
+      }
+    } else {
+      o[(row0 + gi) * D + tid] = from_float<TO>(a / fmaxf(ll, 1e-30f));
     }
-  } else {
+  };
+  // one thread per head dim; splits and warps merge in a fixed order
+  const long rowkv = (long)b * KV + kvh;
+  float* part_acc = part + rowkv * n_splits * grp * D;  // slots for every planned split
+  float* part_m = part + (long)gridDim.z * KV * n_splits * grp * D + rowkv * n_splits * grp;
+  float* part_l = part_m + (long)gridDim.z * KV * n_splits * grp;
+  for (int gi = 0; gi < grp; ++gi) {
+    float mm = NEG_INF;
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < grp) ob[g * D + t] = from_float<TO>(acc[g] / fmaxf(l_s[g], 1e-30f));
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w * MAXG + gi]);
+    float a = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = expf(wm[w * MAXG + gi] - mm);
+      a += wacc[(w * MAXG + gi) * D + tid] * c;
+      ll += wl[w * MAXG + gi] * c;
+    }
+    if (n_real == 1) {
+      emit(gi, a, mm, ll);
+    } else {
+      part_acc[((long)split * grp + gi) * D + tid] = a;
+      if (tid == 0) {
+        part_m[split * grp + gi] = mm;
+        part_l[split * grp + gi] = ll;
+      }
+    }
   }
+  if (n_real == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(counter + rowkv, 1) == n_real - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // every split's m and l, loaded at once into shared memory (over the
+  // warps' partials, consumed); then each row's max, sum and split weights
+  float* sm = wacc;                // n_real x grp: m, then the weight
+  float* sl = sm + n_real * grp;   // n_real x grp: l
+  float* rm = sl + n_real * grp;   // grp: the merged m, then l
+  float* rl = rm + MAXG;
+  for (int e = tid; e < n_real * grp; e += NT) {
+    sm[e] = __ldcg(part_m + e);
+    sl[e] = __ldcg(part_l + e);
+  }
+  __syncthreads();
+  if (tid < grp) {
+    float mm = NEG_INF;
+    for (int sp = 0; sp < n_real; ++sp) mm = fmaxf(mm, sm[sp * grp + tid]);
+    float ll = 0.f;
+    for (int sp = 0; sp < n_real; ++sp) {
+      const float c = expf(sm[sp * grp + tid] - mm);
+      sm[sp * grp + tid] = c;
+      ll += sl[sp * grp + tid] * c;
+    }
+    rm[tid] = mm;
+    rl[tid] = ll;
+  }
+  __syncthreads();
+  // one thread per head dim; the rows of SB splits are loaded together,
+  // then summed in split order
+  constexpr int SB = 4;
+  float a[MAXG];
+#pragma unroll
+  for (int gi = 0; gi < MAXG; ++gi) a[gi] = 0.f;
+  for (int sp0 = 0; sp0 < n_real; sp0 += SB) {
+    float x[SB][MAXG];
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int gi = 0; gi < MAXG; ++gi)
+        x[j][gi] = gi < grp && sp0 + j < n_real
+                       ? __ldcg(part_acc + ((long)(sp0 + j) * grp + gi) * D + tid) : 0.f;
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int gi = 0; gi < MAXG; ++gi)
+        if (gi < grp && sp0 + j < n_real) a[gi] += x[j][gi] * sm[(sp0 + j) * grp + gi];
+  }
+#pragma unroll
+  for (int gi = 0; gi < MAXG; ++gi)
+    if (gi < grp) emit(gi, a[gi], rm[gi], rl[gi]);
+  if (tid == 0) counter[rowkv] = 0;  // ready for the next launch
 }
 
 template <typename TQ, typename T, typename TO, bool PARTIALS>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
-           float* m, float* l, int B, int Smax, long batch_stride, int H, int KV, int window,
-           float scale, cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  decode_attention_kernel<TQ, T, TO, 128, PARTIALS><<<grid, 128, 0, stream>>>(
+           float* m, float* l, void* part, void* counter, int B, int Smax, long batch_stride,
+           int H, int KV, int window, float scale, int n_splits, int kps, cudaStream_t stream) {
+  auto kernel = decode_attention_kernel<TQ, T, TO, PARTIALS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(n_splits, KV, B);
+  kernel<<<grid, NT, smem_bytes<T>(), stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<TO*>(o), m, l, Smax, batch_stride, H,
-      KV, window, scale);
+      static_cast<const int*>(lengths), static_cast<TO*>(o), m, l, static_cast<float*>(part),
+      static_cast<int*>(counter), Smax, batch_stride, H, KV, window, scale, kps);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int B, int Smax, int H, int KV, int D) {
-  return B <= 0 || Smax <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG || D != 128;
+bool bad_shape(int B, int Smax, int H, int KV, int d, int n_splits, int kps,
+               const void* part, const void* counter) {
+  return B <= 0 || Smax <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG || d != D ||
+         n_splits <= 0 || n_splits > MAX_SPLITS || kps <= 0 || kps % (NW * CK) != 0 ||
+         counter == nullptr || (n_splits > 1 && part == nullptr);
 }
 
 }  // namespace
 
 // q (B,H,D), k/v (B,Smax,KV,D), lengths (B,) int32, o (B,H,D), all contiguous.
 // D must be 128, the head_dim of every dense config the port serves.
-// dtype: 0 float32, 1 bfloat16. window < 0 means none. Returns the
+// dtype: 0 float32, 1 bfloat16. window < 0 means none. n_splits splits of
+// kps keys (a multiple of 64) from each row's first visited key; part is fp32
+// scratch of n_splits * B * H * (D + 2) floats (unused with one split) and
+// counter B * KV int32 zeros, which the launch leaves zero. Returns the
 // cudaError_t of the launch.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* lengths, void* o, int B, int Smax, int H,
-                                    int KV, int D, int window, float scale, int dtype,
+                                    const void* lengths, void* o, void* part, void* counter,
+                                    int B, int Smax, int H, int KV, int d, int window,
+                                    float scale, int dtype, int n_splits, int kps,
                                     void* stream) {
-  if (bad_shape(B, Smax, H, KV, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, Smax, H, KV, d, n_splits, kps, part, counter))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long bs = (long)Smax * KV * D;
   if (dtype == 0)
-    return launch<float, float, float, false>(q, k, v, lengths, o, nullptr, nullptr, B, Smax,
-                                              bs, H, KV, window, scale, st);
+    return launch<float, float, float, false>(q, k, v, lengths, o, nullptr, nullptr, part,
+                                              counter, B, Smax, bs, H, KV, window, scale,
+                                              n_splits, kps, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
-        q, k, v, lengths, o, nullptr, nullptr, B, Smax, bs, H, KV, window, scale, st);
+        q, k, v, lengths, o, nullptr, nullptr, part, counter, B, Smax, bs, H, KV, window,
+        scale, n_splits, kps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -242,22 +545,27 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
 // and sequences batch_stride elements apart, every row 16-byte aligned;
 // lengths (B,) int32 measured against the slice (0 allowed); acc (B,KV,grp,D),
 // m and l (B,KV,grp), fp32, contiguous. kv_dtype: 0 float32, 1 bfloat16.
+// n_splits, kps, part and counter as for decode_attention_fwd.
 extern "C" int decode_attention_partials_fwd(const void* q, const void* k, const void* v,
                                              const void* lengths, void* acc, void* m, void* l,
-                                             int B, int chunk, long batch_stride, int H,
-                                             int KV, int D, int window, float scale,
-                                             int kv_dtype, void* stream) {
-  if (bad_shape(B, chunk, H, KV, D) || batch_stride < (long)chunk * KV * D)
+                                             void* part, void* counter, int B, int chunk,
+                                             long batch_stride, int H, int KV, int d,
+                                             int window, float scale, int kv_dtype,
+                                             int n_splits, int kps, void* stream) {
+  if (bad_shape(B, chunk, H, KV, d, n_splits, kps, part, counter) ||
+      batch_stride < (long)chunk * KV * D)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
   if (kv_dtype == 0)
-    return launch<float, float, float, true>(q, k, v, lengths, acc, mp, lp, B, chunk,
-                                             batch_stride, H, KV, window, scale, st);
+    return launch<float, float, float, true>(q, k, v, lengths, acc, mp, lp, part, counter, B,
+                                             chunk, batch_stride, H, KV, window, scale,
+                                             n_splits, kps, st);
   if (kv_dtype == 1)
-    return launch<float, __nv_bfloat16, float, true>(q, k, v, lengths, acc, mp, lp, B, chunk,
-                                                     batch_stride, H, KV, window, scale, st);
+    return launch<float, __nv_bfloat16, float, true>(q, k, v, lengths, acc, mp, lp, part,
+                                                     counter, B, chunk, batch_stride, H, KV,
+                                                     window, scale, n_splits, kps, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,6 +10,11 @@ same computations in PyTorch: a loop over cache blocks with a streaming
 fp32 softmax. The CPU tests run the plain versions; on the card they are
 only the yardsticks the kernel is held against.
 
+The kernel cuts each row's visited keys into ``split_plan`` splits, one
+block each, and merges the splits' softmax partials inside the same launch
+(``combine_partials`` is that merge in PyTorch; ``decode_attention_split_plain``
+mirrors the whole algorithm for the tests).
+
 Layout: q (B, H, D), cache (B, Smax, KV, D), lengths (B,) -> (B, H, D) in
 q's dtype; the query attends to [0, len) or [len - window, len). The
 partials take a slice of the cache (a view is read in place) and lengths
@@ -31,6 +36,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 128  # the head_dim of every dense config the port serves
 MAX_GROUP = 16  # query heads per kv head the kernel holds (MAXG in the source)
 _BLOCK_K = 1024  # cache rows per step of the plain version's loop
+NUM_SMS = 132  # streaming multiprocessors of an H100 SXM, the card the split is sized for
+SPLIT_ALIGN = 64  # keys per split are a multiple of this (4 warps x 16-key chunks)
+MAX_KEYS_PER_SPLIT = 128  # each warp's keys fit its 2-stage ring, all in flight at once
+MAX_SPLITS = 64  # the kernel's last block stages every split's m and l (MAX_SPLITS there)
 
 launches = 0  # kernel launches made by decode_attention_kernel; callers may reset it
 partials_launches = 0  # launches made by decode_attention_partials_kernel; likewise
@@ -71,6 +80,66 @@ def decode_attention_partials_plain(
     return acc, m, denom
 
 
+def combine_partials(
+    acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, dim: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge softmax partials along axis ``dim`` of m and l (acc has one
+    more, trailing, axis): (acc, m, l) unnormalized, as a single pass over
+    all their keys would give them. A split's weight is exp(m - max m): 0
+    for an empty split (m = -1e30) beside a real one, 1 where every split is
+    empty, whose l = 0 and acc = 0 then merge to 0. The caller divides acc
+    by l clamped at 1e-30."""
+    m_g = m.amax(dim=dim, keepdim=True)
+    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    return ((acc * coef.unsqueeze(-1)).sum(dim=dim), m_g.squeeze(dim),
+            (l * coef).sum(dim=dim))
+
+
+def split_plan(smax: int, window: Optional[int], b: int, kv: int) -> Tuple[int, int]:
+    """(number of splits, keys per split) of the kernel's sequence split,
+    fixed from the cache's shape and the window alone, never from the
+    lengths (they stay on the device). Each row's visited keys, from
+    max(0, len - window) (or 0) up to min(len, smax), span at most
+    ``smax`` (or ``min(window, smax)``) keys; the splits cut that span into
+    consecutive pieces of ``keys per split``, enough of them to give the
+    card about two blocks per SM over the b * kv (batch, kv head) rows: a
+    multiple of 64 keys, at most 128 (all of a split's copies in flight at
+    once), unless that would take more than ``MAX_SPLITS`` splits."""
+    span = smax if window is None else min(window, smax)
+    target = -(-2 * NUM_SMS // (b * kv))
+    kps = max(min(-(-span // target), MAX_KEYS_PER_SPLIT), -(-span // MAX_SPLITS), 1)
+    kps = -(-kps // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-span // kps), kps
+
+
+def decode_attention_split_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, *, scale: float, window: Optional[int],
+) -> torch.Tensor:
+    """The kernel's algorithm in PyTorch, for the tests: each row's visited
+    keys cut by :func:`split_plan` from the row's own first key, the
+    partials of every split (:func:`decode_attention_partials_plain` over
+    the split's rows, gathered), merged by :func:`combine_partials`. The
+    kernel leaves out the splits past a row's length, which weigh 0 here."""
+    b, h, _ = q.shape
+    smax, kv = k_cache.shape[1], k_cache.shape[2]
+    n_splits, kps = split_plan(smax, window, b, kv)
+    lens = lengths.to(device=q.device, dtype=torch.int64)
+    start = torch.clamp(lens - window, min=0) if window is not None else torch.zeros_like(lens)
+    end = torch.clamp(lens, max=smax)
+    rows = torch.arange(b, device=q.device)[:, None]
+    parts = []
+    for i in range(n_splits):
+        lo = start + i * kps
+        pos = torch.clamp(lo[:, None] + torch.arange(kps, device=q.device)[None, :], max=smax - 1)
+        n_keys = torch.clamp(end - lo, 0, kps).to(torch.int32)
+        parts.append(decode_attention_partials_plain(
+            q, k_cache[rows, pos], v_cache[rows, pos], n_keys, scale=scale, window=None))
+    acc, _, denom = combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.reshape(q.shape).to(q.dtype)
+
+
 def decode_attention_plain(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     lengths: torch.Tensor, *, scale: float, window: Optional[int],
@@ -85,8 +154,8 @@ def decode_attention_plain(
 @functools.cache
 def _kernel():
     fn = _build.load("decode_attention").decode_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,10 +163,28 @@ def _kernel():
 @functools.cache
 def _partials_kernel():
     fn = _build.load("decode_attention").decode_attention_partials_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_long] + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_long] + [
+        ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+_counters = {}  # device index -> int32 arrival counters, zeroed once; the kernel resets them
+
+
+def _split_buffers(q, b, kv, grp, d, n_splits):
+    """The split partials' scratch (acc, then m and l, of every split) and
+    the per-(batch, kv head) arrival counters the kernel's last block of a
+    row finds its turn with. The counters are allocated zeroed at first use
+    (or when a larger batch needs more) and every launch leaves them 0; so
+    launches that share a device run in one stream's order."""
+    part = torch.empty(n_splits * b * kv * grp * (d + 2) if n_splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    counter = _counters.get(q.device.index)
+    if counter is None or counter.numel() < b * kv:
+        counter = torch.zeros(b * kv, dtype=torch.int32, device=q.device)
+        _counters[q.device.index] = counter
+    return part, counter
 
 
 @functools.cache
@@ -189,10 +276,13 @@ def decode_attention_kernel(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    n_splits, kps = split_plan(smax, window, b, kv)
+    part, counter = _split_buffers(q, b, kv, h // kv, d, n_splits)
     err = _kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, smax, h, kv, d, -1 if window is None else int(window),
-        float(scale), DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
+        out.data_ptr(), part.data_ptr(), counter.data_ptr(), b, smax, h, kv, d,
+        -1 if window is None else int(window), float(scale), DTYPE_CODES[q.dtype],
+        n_splits, kps, torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: {_error_string(err)}")
@@ -216,10 +306,13 @@ def decode_attention_partials_kernel(
     denom = torch.empty_like(m)
     if acc.numel() == 0:
         return acc, m, denom
+    n_splits, kps = split_plan(chunk, window, b, kv)
+    part, counter = _split_buffers(q, b, kv, h // kv, d, n_splits)
     err = _partials_kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), denom.data_ptr(), b, chunk, k_cache.stride(0), h, kv, d,
-        -1 if window is None else int(window), float(scale), DTYPE_CODES[k_cache.dtype],
+        acc.data_ptr(), m.data_ptr(), denom.data_ptr(), part.data_ptr(), counter.data_ptr(),
+        b, chunk, k_cache.stride(0), h, kv, d, -1 if window is None else int(window),
+        float(scale), DTYPE_CODES[k_cache.dtype], n_splits, kps,
         torch.cuda.current_stream().cuda_stream,
     )
     if err:

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import combine_partials
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -218,12 +219,8 @@ def attn_decode_sharded(
     parts = [ops.decode_attention_partials(
         qg, k_eff[:, r * chunk:(r + 1) * chunk], v_eff[:, r * chunk:(r + 1) * chunk],
         eff_local[r], scale=1.0, window=win, impl=impl) for r in range(nm)]
-    acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))    # shard axis first
-    # combine the shards' softmax partials (the reference's pmax / psum)
-    m_g = m.amax(dim=0)
-    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
-    l_g = (denom * coef).sum(dim=0)
-    acc_g = (acc * coef[..., None]).sum(dim=0)
+    # combine the shards' softmax partials (the reference's pmax / psum), shard axis first
+    acc_g, _, l_g = combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
     o = (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(x.dtype)
     return o.reshape(b, 1, H * hd) @ p["wo"]
 

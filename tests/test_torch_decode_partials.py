@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import combine_partials  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SHAPES = [
@@ -78,11 +79,9 @@ def test_partials_match_jax(shape, window, dtype, jax_impl):
 
 
 def _combine(parts):
-    """attn_decode_sharded's combine of the slices' partials."""
-    acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))
-    m_g = m.amax(dim=0)
-    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
-    return (acc * coef[..., None]).sum(0) / torch.clamp((denom * coef).sum(0)[..., None], min=1e-30)
+    """attn_decode_sharded's combine of the slices' partials, divided."""
+    acc, _, denom = combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
+    return acc / torch.clamp(denom[..., None], min=1e-30)
 
 
 def _cache(rng, b, h, kv, d, s):

@@ -18,12 +18,17 @@ at 2e-2. The split-KV partials are held on 4 slices of a cache, passed as
 views of it, with f32 q against bf16 and f32 caches: the qwen2-7b sharded
 serving step (Smax 192, slices of 48 that are full, partial and empty) and
 Smax 4096 with and without a window; combined, they are held against
-decode attention over the whole cache.
+decode attention over the whole cache. The redesigned kernels are also held
+at the decode split's boundaries (lengths around multiples of 64, every
+GQA group up to 16), at flash's 64-row tile boundaries with right-aligned
+queries (Sq < Sk) and windows from one key to all of them, and to bitwise
+repeatability.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -95,6 +100,76 @@ def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype, window
     _close(got, want, dtype)
 
 
+SPLIT_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 192]   # on and around the 64-key splits
+
+
+@pytest.mark.parametrize("grp", [1, 2, 7, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40, 100])
+def test_decode_kernel_at_split_boundaries(cuda_device, grp, dtype, window):
+    """Smax 192 over 8 sequences and 2 kv heads: 3 splits of 64 keys
+    without a window (later splits empty for short rows), 2 under a window
+    of 100, 1 under 40; every GQA group size up to the 16 rows of a tile."""
+    b, kv, smax = len(SPLIT_LENGTHS), 2, 192
+    assert da.split_plan(smax, window, b, kv)[0] == {None: 3, 100: 2, 40: 1}[window]
+    rng = np.random.default_rng(15)
+    q = _randn(rng, (b, kv * grp, 128), dtype, cuda_device)
+    kc, vc = (_randn(rng, (b, smax, kv, 128), dtype, cuda_device) for _ in range(2))
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=cuda_device)
+    want = ops.decode_attention(q, kc, vc, lens, window=window, impl="plain")
+    got = ops.decode_attention(q, kc, vc, lens, window=window, impl="kernel")
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+
+
+FLASH_SQ = [1, 3, 19, 63, 64, 65, 300]
+
+
+@pytest.mark.parametrize("sq", FLASH_SQ)
+@pytest.mark.parametrize("extra_keys", [0, 37])
+@pytest.mark.parametrize("window", [None, 1, 48, 400])
+@pytest.mark.parametrize("grp", [1, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_tiles_and_right_alignment(cuda_device, sq, extra_keys, window, grp,
+                                               dtype):
+    """Query counts on and around the 64-row tiles, Sq < Sk (queries
+    right-aligned to the last keys), windows of one key, of part of the
+    keys and of all of them, GQA groups 1 and 7."""
+    sk, kv = sq + extra_keys, 2
+    rng = np.random.default_rng(16)
+    q = _randn(rng, (1, sq, kv * grp, 128), dtype, cuda_device)
+    k, v = (_randn(rng, (1, sk, kv, 128), dtype, cuda_device) for _ in range(2))
+    want = ops.flash_attention(q, k, v, causal=True, window=window, impl="plain")
+    got = ops.flash_attention(q, k, v, causal=True, window=window, impl="kernel")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(cuda_device, dtype):
+    """Two calls on the same inputs are bitwise equal: the decode kernel
+    merges its splits in a fixed order inside the launch, whichever block
+    arrives last."""
+    rng = np.random.default_rng(17)
+    q = _randn(rng, (4, 28, 128), dtype, cuda_device)
+    kc, vc = (_randn(rng, (4, 4096, 4, 128), dtype, cuda_device) for _ in range(2))
+    lens = torch.tensor([4096, 1, 2500, 1024], dtype=torch.int32, device=cuda_device)
+    for window in (None, 1024):
+        outs = [ops.decode_attention(q, kc, vc, lens, window=window, impl="kernel")
+                for _ in range(2)]
+        assert torch.equal(*outs)
+    qf = q.float() * 128 ** -0.5
+    parts = [ops.decode_attention_partials(qf, kc[:, 1024:2048], vc[:, 1024:2048],
+                                           torch.clamp(lens - 1024, 0, 1024), scale=1.0,
+                                           impl="kernel") for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*parts, strict=True))
+    qs = _randn(rng, (1, 300, 28, 128), dtype, cuda_device)
+    ks, vs = (_randn(rng, (1, 300, 4, 128), dtype, cuda_device) for _ in range(2))
+    outs = [ops.flash_attention(qs, ks, vs, window=48, impl="kernel") for _ in range(2)]
+    assert torch.equal(*outs)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 4, 48), device=cuda_device)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
@@ -159,10 +234,8 @@ def test_decode_partials_kernel_matches_plain_on_views(cuda_device, smax, length
         assert (parts[r][1][b] == -1e30).all() and (parts[r][2][b] == 0).all()
         assert (parts[r][0][b] == 0).all()
     if window is None:      # combined, the slices give attention over the whole cache
-        acc, m, denom = (torch.stack(t) for t in zip(*parts, strict=True))
-        coef = torch.where(torch.isfinite(m), torch.exp(m - m.amax(0)), 0.0)
-        out = (acc * coef[..., None]).sum(0) / torch.clamp((denom * coef).sum(0)[..., None],
-                                                           min=1e-30)
+        acc, _, denom = da.combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
+        out = acc / torch.clamp(denom[..., None], min=1e-30)
         want = ops.decode_attention(q, kc, vc, lens, scale=1.0, impl="plain")
         _close(out.reshape(4, 28, 128), want, dtype)
 
