@@ -8,11 +8,13 @@ Phases, one line of output each (or more):
      hand-written CUDA kernels from src/repro_torch/kernels/csrc, with
      ptxas's registers, spills and shared memory per kernel instantiation
      and, where the toolkit has cuobjdump, the tensor-core (HMMA)
-     instructions in each kernel's SASS;
+     instructions in each kernel's SASS (the SSD scan must spill nothing
+     and have HMMA in its bf16 instantiations);
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
-     serving paths' shapes and at long shapes, the attention kernels also
-     against a second call of themselves (bitwise), with its time, the plain
+     serving paths' shapes and at long shapes (for the SSD scan also a chain
+     of 32 chunks over 4 sequences), every kernel also against a second
+     call of itself (bitwise), with its time, the plain
      version's time, the time of one library call computing the same
      function (scaled_dot_product_attention for attention, a yardstick the
      port never calls; no single PyTorch call computes the SSD scan or
@@ -300,6 +302,9 @@ def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
     got_y, got_h = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
     torch.cuda.synchronize()
     name = f"ssd_scan {[b, s, h, p, g, n]} h0 {with_h0}"
+    again = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    assert torch.equal(got_y, again[0]) and torch.equal(got_h, again[1]), \
+        f"{name}: two calls differ"
     case = {"shape": [b, s, h, p, g, n], "dtype": str(dtype).split(".")[1], "h0": with_h0,
             "max_abs_err": max(_check(f"{name} y", got_y, want_y, dtype, SSD_TOL),
                                _check(f"{name} state", got_h, want_h, dtype, SSD_TOL))}
@@ -544,11 +549,15 @@ def main():
     logs = _build.build()
     print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)}", flush=True)
     for name, log in logs.items():
-        print(f"phase 1 {name} ptxas: {json.dumps(ptxas_report(log))}", flush=True)
+        report = ptxas_report(log)
+        print(f"phase 1 {name} ptxas: {json.dumps(report)}", flush=True)
         hmma = sass_hmma(_build.library_path(name))
         if hmma is not None:
             print(f"phase 1 {name} HMMA instructions per kernel in the SASS: "
                   f"{json.dumps(hmma)}", flush=True)
+        if name == "ssd_scan":
+            assert all(r.get("spill_bytes", 0) == 0 for r in report), report
+            assert hmma is None or all(v > 0 for fn, v in hmma.items() if "bfloat16" in fn), hmma
 
     # ---- phase 2: kernels against their plain versions ------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -572,11 +581,13 @@ def main():
             cases["decode_attention_partials"].append(
                 partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed_p))
         # mamba2-2.7b's prompts of 3 and 19 tokens, a ragged second chunk with
-        # an initial state over two groups, and a long prompt
-        for s, g, with_h0, timed_ssd in ((3, 1, False, False), (19, 1, False, timed),
-                                         (130, 2, True, False), (2048, 1, False, timed)):
+        # an initial state over two groups, a long prompt, and a long chain of
+        # 32 chunks over 4 sequences with an initial state (10240 blocks)
+        for b, s, g, with_h0, timed_ssd in ((1, 3, 1, False, False), (1, 19, 1, False, timed),
+                                            (1, 130, 2, True, False), (1, 2048, 1, False, timed),
+                                            (4, 4096, 1, True, timed)):
             cases["ssd_scan"].append(
-                ssd_case(ops, gen, flush, 1, s, 80, 64, g, 128, dtype, with_h0, timed_ssd))
+                ssd_case(ops, gen, flush, b, s, 80, 64, g, 128, dtype, with_h0, timed_ssd))
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)

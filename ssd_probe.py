@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the SSD scan kernel's time goes, on one NVIDIA GPU.
+
+  python3 ssd_probe.py
+
+Times ``csrc/ssd_scan.cu`` (bf16, mamba2-2.7b's 80 heads of P = 64, G = 1,
+N = 128; cold L2, chip_smoke's timing) in two ways:
+  1. the chain: the same 2560 blocks as one-chunk sequences (no chain),
+     as chains of 2, 8 and 16 chunks, and one wave of full chunks;
+  2. knock-outs: copies of the source with one part removed (their results
+     are wrong by design), built into build/ssd_probe/ and launched through
+     the same wrapper: an empty launch, the loads and cumsum alone, no state
+     stores, no exp in the scores, no scores @ x, no C B^T, no state
+     update, no y warps, neither y warps nor state update.
+Prints the card's name and power limit first. Imports nothing of JAX.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+import chip_smoke as cs
+
+SHAPES = [(1, 19, False), (1, 128, False), (1, 128, True), (16, 128, False), (16, 128, True),
+          (8, 256, False), (2, 1024, False), (1, 2048, False), (1, 2048, True), (4, 4096, True)]
+ABLATION_SHAPES = [(1, 19, False), (1, 128, False), (1, 2048, False)]
+Y_ROLE = "  if (warp < NYW) {\n"
+STATE_MMA = "    mm_xtwb<NTW, LDP, LDN>(acc, xs_ + j0 * LDP, bs_ + j0 * LDN + n0, wv + j0, lane);"
+# name -> (text in the source, what replaces it), applied in order
+KNOCKOUTS = {
+    "empty": [("  const int tid = threadIdx.x,",
+               "  if (S > 0) return;\n  const int tid = threadIdx.x,")],
+    "loads_and_cumsum": [(Y_ROLE, "  if (S > 0) return;\n" + Y_ROLE)],
+    "no_state_store": [(
+        "        store2(hb + p * N + n, decay * prev[mt][nt][2 * hf] + acc[mt][nt][2 * hf],\n"
+        "               decay * prev[mt][nt][2 * hf + 1] + acc[mt][nt][2 * hf + 1]);",
+        "        if (acc[mt][nt][2 * hf] == 12345.f) hb[0] = decay;")],
+    "no_exp": [("s[nt][e] * expf(cum[i] - cum[j]) * dts[j]", "s[nt][e] * dts[j]")],
+    "no_scores_x": [("        mm_px<LDP>(acc[k], s, xs_ + j0 * LDP, lane);\n",
+                     "        acc[k][0][0] += s[0][0] + s[1][3];\n")],
+    "no_cbt": [("        mm_abt<N, 2>(reinterpret_cast<float(&)[4][4]>(s), cs_ + i0 * LDN, "
+                "bs_ + j0 * LDN,\n                     LDN, lane);\n", ""),
+               ("        mm_abt<N, 1>(s, cs_ + i0 * LDN, bs_ + j0 * LDN, LDN, lane);\n", "")],
+    "no_state_update": [(STATE_MMA, "    acc[0][0][0] += wv[j0];")],
+    "no_y_warps": [(Y_ROLE, Y_ROLE + "    if (S > 0) return;\n")],
+    "no_y_warps_no_state_update": [(Y_ROLE, Y_ROLE + "    if (S > 0) return;\n"),
+                                   (STATE_MMA, "    acc[0][0][0] += wv[j0];")],
+}
+
+
+def _inputs(gen, b, s, with_h0):
+    h, p, n = 80, 64, 128
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").bfloat16()
+    dt = torch.empty((b, s, h), device="cuda").uniform_(0.001, 0.1, generator=gen)
+    A = -torch.empty((h,), device="cuda").uniform_(1.0, 16.0, generator=gen)
+    B = torch.randn((b, s, 1, n), generator=gen, device="cuda").bfloat16()
+    C = torch.randn((b, s, 1, n), generator=gen, device="cuda").bfloat16()
+    D = torch.randn((h,), generator=gen, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_h0 else None
+    return (x, dt, A, B, C, D), h0
+
+
+def _build_knockouts(_build):
+    """One library per knock-out, all nvcc runs started together."""
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    out_dir = _build.BUILD_DIR / "ssd_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name, edits in KNOCKOUTS.items():
+        text = src
+        for old, new in edits:
+            assert old in text, f"{name}: the source no longer holds {old!r}"
+            text = text.replace(old, new)
+        cu, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
+        cu.write_text(text)
+        running[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                                           str(cu)], stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in running.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"nvcc failed for the {name} knock-out:\n{log}"
+        fn = ctypes.CDLL(str(lib)).ssd_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("ssd_probe: no CUDA device; this script runs only on a GPU", file=sys.stderr)
+        sys.exit(1)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card.splitlines()[0])
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def time_ms(args, h0):
+        return cs._time_ms(lambda: ops.ssd_scan(*args, impl="kernel", initial_state=h0), 30, flush)
+
+    for b, s, with_h0 in SHAPES:
+        args, h0 = _inputs(gen, b, s, with_h0)
+        chunks = -(-s // ssd.CHUNK)
+        print(f"probe chain (B, S) = ({b}, {s}) h0 {with_h0}: {chunks} chunks, "
+              f"{chunks * b * 80 * ssd.HEAD_DIM // ssd.COLUMNS} blocks, {time_ms(args, h0):.5f} ms",
+              flush=True)
+    kernel = ssd._kernel
+    libs = {"as built": kernel(), **_build_knockouts(_build)}
+    for b, s, with_h0 in ABLATION_SHAPES:
+        args, h0 = _inputs(gen, b, s, with_h0)
+        row = []
+        for name, fn in libs.items():
+            ssd._kernel = lambda fn=fn: fn
+            row.append(f"{name} {time_ms(args, h0):.5f}")
+        ssd._kernel = kernel
+        print(f"probe knock-outs (B, S) = ({b}, {s}), ms: " + ", ".join(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,10 +11,12 @@ are built for), plus the qwen2-7b shapes of the serving path. Tolerances:
 float32 2e-5, bfloat16 2e-2 (the kernel and the plain version sum in
 another order and round bf16 outputs independently). The SSD scan is held
 at mamba2-2.7b's prompt lengths (3 and 19 tokens, 80 heads) and at
-tests/test_kernels.py's lengths over one, two and sixteen chunks, for one
-and two groups, both supported state sizes, with and without an initial
-state; float32 at 3e-4 (tests/test_kernels.py's SSD tolerance), bfloat16
-at 2e-2. The split-KV partials are held on 4 slices of a cache, passed as
+tests/test_kernels.py's lengths over one, two and sixteen chunks, at the
+chunk's edges (127 to 257), and over 32 chunks of 4 x 80 heads (more
+blocks than the card holds), for one and two groups, both supported state
+sizes, with and without an initial state, bitwise from call to call and
+with the device's chain flags left zero; float32 at 3e-4
+(tests/test_kernels.py's SSD tolerance), bfloat16 at 2e-2. The split-KV partials are held on 4 slices of a cache, passed as
 views of it, with f32 q against bf16 and f32 caches: the qwen2-7b sharded
 serving step (Smax 192, slices of 48 that are full, partial and empty) and
 Smax 4096 with and without a window; combined, they are held against
@@ -267,6 +269,12 @@ SSD_SHAPES = [
     (2, 96, 8),
     (1, 130, 8),
     (1, 2048, 8),
+    # the chunk's edges: the chained state pass starts at 129
+    (1, 127, 8),
+    (1, 128, 8),
+    (1, 129, 8),
+    (2, 256, 8),
+    (2, 257, 8),
 ]
 
 
@@ -296,6 +304,49 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, shape, g, n, with_h0, dtype)
     assert got_h.dtype == torch.float32 and got_h.shape == (b, h, 64, n)
     _close(got_y, want_y, dtype, SSD_TOL)
     _close(got_h, want_h, dtype, SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_long_chain(cuda_device, dtype):
+    """32 chunks of 320 (batch, head) rows: 10240 blocks, more than the card
+    holds at once, so blocks wait on the chain while others still start."""
+    args, h0 = _ssd_inputs(np.random.default_rng(12), 4, 4096, 80, 1, 128, dtype, True,
+                           cuda_device)
+    want_y, want_h = ops.ssd_scan(*args, impl="plain", initial_state=h0)
+    got_y, got_h = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    torch.cuda.synchronize()
+    _close(got_y, want_y, dtype, SSD_TOL)
+    _close(got_h, want_h, dtype, SSD_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_kernel_is_bitwise_repeatable(cuda_device, dtype, with_h0):
+    """The chain adds the states in a fixed order, whichever block runs first."""
+    args, h0 = _ssd_inputs(np.random.default_rng(13), 2, 1000, 80, 2, 128, dtype, with_h0,
+                           cuda_device)
+    first = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    torch.cuda.synchronize()
+    again = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, f) for a, f in zip(again, first, strict=True))
+
+
+def test_ssd_scan_kernel_leaves_its_flags_zero(cuda_device):
+    """Calls in a row share the device's ticket counter and flags: each
+    launch leaves them zero, so the next, of another shape, is right too."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    rng = np.random.default_rng(14)
+    for b, s, h, with_h0 in ((2, 700, 16, True), (1, 300, 8, False), (3, 1100, 24, True),
+                             (2, 700, 16, True)):
+        args, h0 = _ssd_inputs(rng, b, s, h, 1, 64, torch.bfloat16, with_h0, cuda_device)
+        got_y, got_h = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+        torch.cuda.synchronize()
+        assert not ssd._syncs[cuda_device.index or 0].any()
+        want_y, want_h = ops.ssd_scan(*args, impl="plain", initial_state=h0)
+        _close(got_y, want_y, torch.bfloat16, SSD_TOL)
+        _close(got_h, want_h, torch.bfloat16, SSD_TOL)
 
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
