@@ -35,6 +35,17 @@ Phases, one line of output each (or more):
      slot against the unsharded standalone decode, and sharded engines
      against unsharded ones, int8 and bf16 caches, on log-softmax (bound:
      the unsharded kernel path against the oracle path);
+  R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
+     none of the kernels (their counts must stay 0): (a) the speculative-
+     serving demos of launch/speculative_serving.py with their asserts;
+     (b) benchmarks/bench_scheduler.py's serve-box cell at c = 256 on the
+     host admission path, with every pool above 2 candidates on the card
+     (``host_admit_max=2``) and the same on the CPU; the three summaries
+     must agree outside the wall-clock keys; then the reference greedy at
+     c = 3 scoring on the card against the fused pass; (c) one admission
+     pass at K = 12, 96, 768 and 3072 candidates: ``admit_beam`` on the
+     card (host wall, and device time and launches from torch.profiler),
+     ``_admit_numpy`` on the host and ``score_beam`` per call;
   5. one JSON line on the kernels; last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
@@ -49,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -520,6 +532,274 @@ def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
     assert max(errs["bf16 sharded vs unsharded"]) <= floor, errs
 
 
+WALL_CLOCK_KEYS = {"sched_us_per_admit", "sched_us_per_tick"}  # the scheduler's own wall clock
+ADMIT_KS = (12, 96, 768, 3072)  # pool sizes of one timed admission pass (N = 12, R = 4)
+
+
+def _strip(summary):
+    return {k: v for k, v in summary.items() if k not in WALL_CLOCK_KEYS}
+
+
+def _same_summary(a, b, what):
+    diffs = {k: (a.get(k), v) for k, v in _strip(b).items() if a.get(k) != v}
+    if diffs or set(_strip(a)) != set(_strip(b)):
+        raise AssertionError(f"{what}: summaries differ on {diffs}")
+
+
+def _serve_box_cell(run_mode, pe, box, c, **kw):
+    """benchmarks/bench_scheduler.py's serve-box cell (24 cpu, accel 8,
+    batched model steps, event scheduler) at concurrency c. Returns the
+    summary and the host wall time of the run."""
+    from repro_torch.core.workload import WorkloadConfig, make_episodes
+
+    eps = make_episodes(WorkloadConfig(seed=11, n_episodes=c, arrival_stagger=0.5,
+                                       shared_frac=0.5, shared_pool=4))
+    t0 = time.perf_counter()
+    s = run_mode(eps, pe, "bpaste", box, seed=7, max_concurrent_episodes=c, record_log=False,
+                 model_max_batch=8, **kw).summary()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return s, time.perf_counter() - t0
+
+
+def _counting(module, attr, counts):
+    """Wrap ``module.attr`` so that each call adds one to ``counts`` under
+    the device type of its first tensor argument; returns the original."""
+    real = getattr(module, attr)
+
+    def counted(*args, **kw):
+        first = next(a for a in (*args, *kw.values()) if isinstance(a, torch.Tensor))
+        counts[first.device.type] = counts.get(first.device.type, 0) + 1
+        return real(*args, **kw)
+
+    setattr(module, attr, counted)
+    return real
+
+
+def _admission_pool(pe, k):
+    """``k`` candidates: tree hypotheses from a HypothesisBuilder (the
+    runtime's settings) over the prefixes of the serve-box cell's 256
+    episodes, then, where those run out, chains as
+    benchmarks/bench_admission.py::_beam builds them."""
+    from repro_torch.core.events import DEFAULT_TOOLS
+    from repro_torch.core.hypothesis import BranchHypothesis, HypothesisBuilder, Node, NodeKind
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+
+    traces = episodes_to_traces(make_episodes(WorkloadConfig(
+        seed=11, n_episodes=256, arrival_stagger=0.5, shared_frac=0.5, shared_pool=4)))
+    builder = HypothesisBuilder(pe, assembly="tree", max_nodes=11)
+    pool = []
+    for trace in traces:
+        for cut in range(1, len(trace)):
+            pool.extend(builder.build(trace[:cut], beam_width=12))
+        if len(pool) >= k:
+            return pool[:k], k
+    n_tree = len(pool)
+    for i in range(k - n_tree):
+        tools = ["grep", "read", "parse", "search"][: 1 + i % 4]
+        nodes = [Node(j, NodeKind.TOOL, t, DEFAULT_TOOLS[t].level, DEFAULT_TOOLS[t].rho,
+                      DEFAULT_TOOLS[t].base_latency) for j, t in enumerate(tools)]
+        pool.append(BranchHypothesis(10**6 + i, nodes, [(j - 1, j) for j in range(1, len(tools))],
+                                     0.95 - 0.05 * (i % 10), context_key=("x",)))
+    return pool, n_tree
+
+
+def _pass_profile(run, calls):
+    """(host wall ms, device ms, kernels, copies) per call of ``run``, which
+    makes ``calls`` calls and synchronises; device time and launches from a
+    torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / calls / 1e3
+    assert device_ms > 0, "the profiler recorded no device time"
+    copies = sum(e.count for e in events if "memcpy" in e.key.lower()
+                 or "memset" in e.key.lower()) / calls
+    kernels = sum(e.count for e in events) / calls - copies
+    return wall_ms, device_ms, kernels, copies
+
+
+def admission_times(pe, box, device):
+    """Phase R(c): one admission pass at each pool size of ADMIT_KS, on the
+    card (``admit_beam`` through ``fused_admit``, and alone on tables
+    already there) and on the host (``_admit_numpy``), with ``score_beam``
+    per call; the two paths must admit the same set."""
+    from repro_torch.core import admission, scoring
+    from repro_torch.core.runtime import RuntimeConfig
+
+    cap = box.cap_array()
+    auth = 0.25 * cap
+    slack, budget = cap - auth, RuntimeConfig().budget.as_array()
+    sc = scoring.Scorer(box, k_max=12, n_max=12, device=device)
+    rows = []
+    for k in ADMIT_KS:
+        hyps, n_tree = _admission_pool(pe, k)
+        pb = scoring.pack_beam(hyps, admission.bucket_k(k, sc.k_max), sc.n_max)
+        calls = max(3, min(50, 3000 // k))
+
+        def host(calls=calls, hyps=hyps, pb=pb):
+            for _ in range(calls):
+                res = admission.fused_admit(hyps, sc, slack, budget, auth, packed=pb,
+                                            small_beam_threshold=10**9)
+            return res
+
+        def dev(calls=calls, hyps=hyps, pb=pb):
+            for _ in range(calls):
+                res = admission.fused_admit(hyps, sc, slack, budget, auth, packed=pb,
+                                            small_beam_threshold=0)
+            return res
+
+        want, got = host(1), dev(1)
+        if sorted(h.hid for h in got.admitted) != sorted(h.hid for h in want.admitted):
+            raise AssertionError(f"K={k}: the device pass admitted "
+                                 f"{[h.hid for h in got.admitted]}, the host pass "
+                                 f"{[h.hid for h in want.admitted]}")
+        t0 = time.perf_counter()
+        host()
+        host_ms = (time.perf_counter() - t0) / calls * 1e3
+        tab = scoring.device_tables(pb, device, w=np.ones(pb.q.shape[0]),
+                                    memo_mask=np.zeros_like(pb.node_lat), auth_rho=auth,
+                                    cap=cap, limit=np.minimum(slack, budget), lam=sc.lam,
+                                    mu=sc.mu, idle_window=8.0, model_delay=0.0,
+                                    spec_cost=np.zeros(pb.q.shape[0]), shed_penalty=0.0)
+        stab = {k2: v for k2, v in tab.items() if k2 not in ("w", "limit", "auth_rho")}
+        stab["admitted_rho"] = tab["auth_rho"]
+
+        def alone(calls=calls, tab=tab):
+            for _ in range(calls):
+                admission.admit_beam(**tab, n_nodes=sc.n_max)
+            if device == "cuda":
+                torch.cuda.synchronize()
+
+        def score(calls=calls, stab=stab):
+            for _ in range(calls):
+                scoring.score_beam(**stab, n_nodes=sc.n_max)
+            if device == "cuda":
+                torch.cuda.synchronize()
+
+        costly = {h.hid for h, r in zip(hyps, pb.rho, strict=False) if r.any()}
+        row = {"K": k, "tree_hyps": n_tree, "admitted": len(got.admitted),
+               "admitted_with_demand": sum(h.hid in costly for h in got.admitted),
+               "host_numpy_ms": host_ms}
+        if device == "cuda":
+            for name, fn in (("fused_admit_device", dev), ("admit_beam_alone", alone),
+                             ("score_beam", score)):
+                wall, dms, kern, copies = _pass_profile(fn, calls)
+                row.update({f"{name}_wall_ms": wall, f"{name}_device_ms": dms,
+                            f"{name}_kernels": kern, f"{name}_copies": copies})
+        else:
+            for name, fn in (("fused_admit_device", dev), ("score_beam", score)):
+                t0 = time.perf_counter()
+                fn()
+                row[f"{name}_wall_ms"] = (time.perf_counter() - t0) / calls * 1e3
+        print(f"phase R(c) admission pass {json.dumps(row)}", flush=True)
+        rows.append(row)
+    wins = [r["K"] for r in rows if r["fused_admit_device_wall_ms"] < r["host_numpy_ms"]]
+    print(f"phase R(c) pool sizes where the {device} pass beats the host's: {wins}", flush=True)
+    return rows
+
+
+def runtime_phase(device="cuda"):
+    """Phase R: the B-PASTE runtime of the port. (a) the speculative-serving
+    demos with their asserts; (b) the serve-box cell at c = 256 on the host
+    path, with every pool above 2 on the card, and the same on the CPU
+    (the three must agree outside the wall-clock keys), and the reference
+    greedy at c = 3 on the card against the fused pass; (c) the times of
+    one admission pass."""
+    from repro_torch.core import admission, scoring
+    from repro_torch.core import runtime as rt
+    from repro_torch.core.events import ResourceVector
+    from repro_torch.core.interference import Machine
+    from repro_torch.core.patterns import PatternEngine
+    from repro_torch.core.runtime import run_mode
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+    from repro_torch.launch.speculative_serving import run_edge_box_demo, run_open_loop_demo
+
+    t0 = time.time()
+    run_edge_box_demo(device=device)
+    run_open_loop_demo(device=device)
+    print(f"phase R(a) demos: {time.time() - t0:.1f} s", flush=True)
+
+    def engine(n):
+        return PatternEngine(context_len=2, min_support=3).fit(
+            episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=n))))
+
+    pe20, pe60 = engine(20), engine(60)
+    box = Machine(ResourceVector(cpu=24, mem_bw=200, io=1000, accel=8))
+    passes, pools = {}, []
+    real = _counting(admission, "admit_beam", passes)
+    real_fused = rt.fused_admit
+
+    def pooled(hyps, *args, **kw):
+        res = real_fused(hyps, *args, **kw)
+        rho = kw["memo_rho"] if kw.get("memo_rho") is not None else \
+            [scoring.prefix_rho(h) for h in hyps]
+        picked = {h.hid for h in res.admitted}
+        pools.append((len(hyps), len(picked),
+                      sum(h.hid in picked and bool(np.any(r)) for h, r in zip(hyps, rho,
+                                                                            strict=True))))
+        return res
+
+    rt.fused_admit = pooled
+    runs = []
+    try:
+        for label, kw in (("host path", {}),
+                          (f"host_admit_max=2 on {device}", dict(host_admit_max=2, device=device)),
+                          ("host_admit_max=2 on cpu", dict(host_admit_max=2, device="cpu"))):
+            passes.clear()
+            s, wall = _serve_box_cell(run_mode, pe20, box, 256, **kw)
+            runs.append((s, dict(passes)))
+            print(f"phase R(b) serve box c=256 {label}: makespan {float(s['makespan'])!r} "
+                  f"admission passes {s['sched_admit_calls']} (admit_beam by device: {passes}) "
+                  f"sched_us_per_admit {s['sched_us_per_admit']:.1f} sched_us_per_tick "
+                  f"{s['sched_us_per_tick']:.1f} wall {wall:.2f} s", flush=True)
+    finally:
+        admission.admit_beam = real
+        rt.fused_admit = real_fused
+    (s1, p1), (s2, p2), (s3, p3) = runs
+    assert not p1 and p2.get(device, 0) > 0 and p3.get("cpu", 0) > 0, (p1, p2, p3)
+    _same_summary(s2, s3, f"c=256 on {device} against the cpu")
+    _same_summary(s2, s1, f"c=256 on {device} against the host path")
+    print(f"phase R(b) c=256: the three runs agree on {len(_strip(s1))} summary keys; "
+          f"sched_us_per_admit {s2['sched_us_per_admit']:.1f} ({device} path) against "
+          f"{s1['sched_us_per_admit']:.1f} (host path)", flush=True)
+    sizes = [n for n, _, _ in pools]
+    big = [(a, d) for n, a, d in pools if n > 2]
+    print(f"phase R(b) c=256 fused_admit calls over the three runs: {len(pools)}; pool largest "
+          f"{max(sizes)}, mean {sum(sizes) / len(sizes):.1f}, above 512 (the default "
+          f"host_admit_max): {sum(n > 512 for n in sizes)}; in the {len(big)} with more than 2 "
+          f"candidates, admitted per call {sum(a for a, _ in big) / len(big):.2f}, of them with "
+          f"demand {sum(d for _, d in big) / len(big):.2f}", flush=True)
+
+    thor = Machine(ResourceVector(cpu=6, mem_bw=50, io=200, accel=1))
+    eps = make_episodes(WorkloadConfig(seed=11, n_episodes=6))
+    scored = {}
+    real = _counting(scoring, "score_beam", scored)
+    try:
+        mf = run_mode(eps, pe60, "bpaste", thor, seed=7, max_concurrent_episodes=3,
+                      admission="fused", device=device)
+        mr = run_mode(eps, pe60, "bpaste", thor, seed=7, max_concurrent_episodes=3,
+                      admission="reference", device=device)
+    finally:
+        scoring.score_beam = real
+    assert scored.get(device, 0) > 0, scored
+    assert abs(mf.makespan - mr.makespan) <= 1e-9 * abs(mr.makespan), (mf.makespan, mr.makespan)
+    assert (mf.reuses, mf.promotions) == (mr.reuses, mr.promotions)
+    print(f"phase R(b) c=3 reference on {device} ({scored} score_beam calls) against fused: "
+          f"makespan {float(mr.makespan)!r} and {float(mf.makespan)!r}, reuses {mr.reuses}, "
+          f"promotions {mr.promotions}", flush=True)
+
+    admission_times(pe20, box, device)
+    print(f"phase R: {time.time() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -651,6 +931,15 @@ def main():
     launches["ssd_scan"] = counts["ssd_scan"]
     _profile_steps(M, params, engine, cfg.name, None, ("ssd_scan", "ssd_scan_kernel"))
     check_model(M, cfg, params, engine, cfg.name)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    runtime_phase("cuda")
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    assert not any(counts.values()), counts
 
     # ---- phase 5: the kernels line; then the device line -----------------
     replaces = {

@@ -2,12 +2,14 @@
 
 * It imports without JAX and loads nothing of the JAX package.
 * Its copies of the framework-free modules stay equal to the originals in
-  src/repro/ outside their import lines (a drift guard).
+  src/repro/ outside their import lines (a drift guard), indented imports
+  included, apart from the edits listed in EDITS.
 * It calls no library attention and no torch.compile.
 """
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -27,7 +29,47 @@ COPIED = [
     "core/patterns.py",
     "core/hypothesis.py",
     "serving/spec_serving.py",
+    "core/interference.py",
+    "core/simulator.py",
+    "core/safety.py",
+    "core/memo.py",
+    "core/model_service.py",
+    "core/trace.py",
+    "core/analysis.py",
+    "core/runtime.py",
+    "analysis.py",
 ] + sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py"))
+
+# The copies may differ from their originals by these edits, applied to
+# the original before the comparison: (regular expression, replacement),
+# each pattern matching exactly once. The runtime gains the device of its
+# tensor paths; four notes on the reference's own change history (which
+# name its pull requests by number) are reworded.
+HISTORY_NOTE = r"PR[ -]\d+(?:/\d+)?"
+EDITS = {
+    "core/model_service.py": [
+        (rf"\({HISTORY_NOTE}'s ``serving/thor_c8``", "(the serving bench's ``serving/thor_c8``"),
+    ],
+    "core/memo.py": [
+        (rf"^{HISTORY_NOTE}'s serving bench", "The serving bench"),
+    ],
+    "core/analysis.py": [
+        (rf"scheduler \({HISTORY_NOTE}\) added", "scheduler added"),
+    ],
+    "core/runtime.py": [
+        (rf"\(the {HISTORY_NOTE} reference", "(the earlier reference"),
+        # RuntimeConfig gains the device of the tensor paths
+        (re.escape('    mode: str = "bpaste"\n'),
+         '    mode: str = "bpaste"\n'
+         '    device: str = "cuda"          # where the scorer and the fused admission\n'
+         '                                  # pass run their tensor paths ("cpu" in\n'
+         '                                  # tests); the host numpy paths ignore it\n'),
+        # ... and hands it to the scorer
+        (re.escape("                             k_max=rcfg.beam_k, n_max=rcfg.max_nodes)\n"),
+         "                             k_max=rcfg.beam_k, n_max=rcfg.max_nodes,\n"
+         "                             device=rcfg.device)\n"),
+    ],
+}
 
 
 def _port_modules():
@@ -57,7 +99,8 @@ def test_port_imports_without_jax_or_repro():
 def _rewrite_imports(text: str) -> str:
     out = []
     for line in text.splitlines(keepends=True):
-        if line.startswith("from repro.") or line.startswith("import repro."):
+        stripped = line.lstrip()
+        if stripped.startswith("from repro.") or stripped.startswith("import repro."):
             line = line.replace("repro.", "repro_torch.", 1)
         out.append(line)
     return "".join(out)
@@ -66,9 +109,13 @@ def _rewrite_imports(text: str) -> str:
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_matches_original(rel):
     original = (SRC / "repro" / rel).read_text()
+    for pattern, new in EDITS.get(rel, []):
+        original, n = re.subn(pattern, lambda _m, new=new: new, original, flags=re.M)
+        assert n == 1, f"src/repro/{rel} matches {pattern!r} {n} times, not once"
     copy = (PORT / rel).read_text()
     assert copy == _rewrite_imports(original), (
-        f"src/repro_torch/{rel} drifted from src/repro/{rel} outside its import lines")
+        f"src/repro_torch/{rel} drifted from src/repro/{rel} outside its import lines"
+        + (" and its named edits" if rel in EDITS else ""))
 
 
 @pytest.mark.parametrize("banned", ["scaled_dot_product_attention", "torch.compile",
