@@ -13,7 +13,10 @@ Phases, one line of output each (or more):
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
      serving paths' shapes and at long shapes (for the SSD scan also a chain
-     of 32 chunks over 4 sequences), every kernel also against a second
+     of 32 chunks over 4 sequences, and zamba2-1.2b's prompts at 64 heads
+     and N = 64; for attention also zamba2-1.2b's shared block, 32 heads of
+     head_dim 64, and the reduced configs' head_dim 32),
+     every kernel also against a second
      call of itself (bitwise), with its time, the plain
      version's time, the time of one library call computing the same
      function (scaled_dot_product_attention for attention, a yardstick the
@@ -28,13 +31,22 @@ Phases, one line of output each (or more):
      shards on the card, with the same weights, with a bf16 and then an
      int8 KV cache (the split-KV partials kernel in every layer of every
      step, 4 launches each); then mamba2-2.7b (64 layers; the SSD scan in
-     every prefill);
+     every prefill); then zamba2-1.2b (38 Mamba2 layers and 6 applications
+     of one shared attention block of head_dim 64: the SSD scan in every
+     layer of a prefill, flash and decode attention in every application);
   4. after each model's run, a batched engine slot against a standalone
      prefill + decode at full width, teacher-forced, and the kernel path
      against the oracle path; for the sharded runs, the sharded engine's
      slot against the unsharded standalone decode, and sharded engines
      against unsharded ones, int8 and bf16 caches, on log-softmax (bound:
-     the unsharded kernel path against the oracle path);
+     the unsharded kernel path against the oracle path); with the qwen2-7b
+     weights, the same check under a sliding window of 64 (a rolling buffer
+     of 64 rows) with a 100-token prompt, then that rolling decode against
+     the full forward under the window mask on log-softmax (bound: 1.5
+     times a full cache's decode against its own forward; the rows laid out
+     unrotated, as the JAX package's prefill leaves them, must exceed it);
+     after zamba2-1.2b, the serving CLI
+     (``launch/serve.py``'s ``main``) on reduced qwen2-7b (head_dim 32);
   R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
      none of the kernels (their counts must stay 0): (a) the speculative-
      serving demos of launch/speculative_serving.py with their asserts;
@@ -245,14 +257,15 @@ def decode_case(ops, gen, flush, b, h, kv, d, smax, dtype, window, timed):
     return case
 
 
-def partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed):
-    """The split-KV partials over the 4 slices of a (4, smax, 4, 128) cache
-    (qwen2-7b's batch, kv heads and head_dim; 28 query heads), each slice a
-    view of the cache, with f32 pre-scaled q as the sharded decode passes
-    it; without a window the four are also combined and held against
-    decode attention over the whole cache. Timed per launch over a sweep of
-    the 4 slices (one layer of a sharded decode step)."""
-    b, h, kv, d = 4, 28, 4, 128
+def partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed, h=28, kv=4,
+                  d=128):
+    """The split-KV partials over the 4 slices of a (4, smax, kv, d) cache
+    (by default qwen2-7b's batch, kv heads and head_dim; 28 query heads),
+    each slice a view of the cache, with f32 pre-scaled q as the sharded
+    decode passes it; without a window the four are also combined and held
+    against decode attention over the whole cache. Timed per launch over a
+    sweep of the 4 slices (one layer of a sharded decode step)."""
+    b = 4
     q = torch.randn((b, h, d), generator=gen, device="cuda") * d ** -0.5
     kc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
     vc = torch.randn((b, smax, kv, d), generator=gen, device="cuda").to(dtype)
@@ -337,13 +350,13 @@ def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
     return case
 
 
-def _profile(label, run, calls, kernel, weight_bytes):
+def _profile(label, run, calls, named, weight_bytes):
     """Device time of one call from a torch.profiler trace (the sum of its
     kernels' times) over ``run``, which makes ``calls`` calls and
     synchronises, against the host's wall time per call, with the named
-    kernel's own share and the weight bytes a call reads (every weight but
-    the embedding table, of which it reads a row per token). ``kernel`` is
-    (name, the name of its __global__ function), or None."""
+    kernels' own shares and the weight bytes a call reads (every weight but
+    the embedding table, of which it reads a row per token). ``named`` is a
+    list of (name, the name of its __global__ function)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,13 +371,12 @@ def _profile(label, run, calls, kernel, weight_bytes):
     assert device_ms > 0, "the profiler recorded no device time"
     launches = sum(e.count for e in kernels) / calls
     own = ""
-    if kernel is not None:
-        name, symbol = kernel
+    for name, symbol in named:
         mine = [e for e in kernels if symbol in e.key]
         assert mine, f"the trace holds no {name} kernel"
         mine_ms = sum(e.self_device_time_total for e in mine) / calls / 1e3
-        own = (f"; {name} {mine_ms:.4f} ms ({mine_ms / device_ms:.3f} of the device time) "
-               f"in {sum(e.count for e in mine) / calls:.0f} launches")
+        own += (f"; {name} {mine_ms:.4f} ms ({mine_ms / device_ms:.3f} of the device time) "
+                f"in {sum(e.count for e in mine) / calls:.0f} launches")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     shares = ", ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms"
                        for e in top)
@@ -375,11 +387,11 @@ def _profile(label, run, calls, kernel, weight_bytes):
           f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
 
 
-def _profile_steps(M, params, engine, label, decode_kernel, prefill_kernel, calls=3):
+def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, calls=3):
     """Profile a batched decode step (all slots active) and, unless
-    ``prefill_kernel`` is False, the prefill of a 19-token prompt, the
-    length of a speculative observation. A Mamba2 decode step runs none of
-    this repository's kernels."""
+    ``prefill_kernels`` is None, the prefill of a 19-token prompt, the
+    length of a speculative observation; each list names the repository's
+    kernels the call runs (a Mamba2 decode step runs none)."""
     cfg = engine.cfg
     weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
     tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
@@ -398,10 +410,10 @@ def _profile_steps(M, params, engine, label, decode_kernel, prefill_kernel, call
         torch.cuda.synchronize()
 
     _profile(f"{label} decode step at batch {engine.max_batch}", decode, calls,
-             decode_kernel, weight_bytes)
-    if prefill_kernel is not False:
+             decode_kernels, weight_bytes)
+    if prefill_kernels is not None:
         _profile(f"{label} prefill of {prompt.shape[1]} tokens", prefill, calls,
-                 prefill_kernel, weight_bytes)
+                 prefill_kernels, weight_bytes)
 
 
 def _tensors(tree):
@@ -484,6 +496,52 @@ def check_model(M, cfg, params, engine, label, need=5, prompt=(5, 6, 7, 8)):
           f"agree {agree}/6; kernel-vs-oracle logit correlation min {min(corr):.6f}", flush=True)
     assert agree >= need, (toks_batched, toks_single)
     assert min(corr) > 0.99, corr
+
+
+def _decode_vs_forward(M, params, cfg, prompt, steps, unrotate=False):
+    """max |log-softmax difference| of each greedy decode step after a
+    prefill of ``prompt`` (max_len 192) against the oracle path's full
+    forward (``attn_impl="ref"``) over the same tokens. ``unrotate`` first
+    moves the cache's rows back to the order the JAX package's prefill
+    leaves them in (positions in order from row 0)."""
+    oracle = dataclasses.replace(cfg, attn_impl="ref")
+    seq = list(prompt)
+    lg, cache = M.prefill(params, cfg, {"tokens": torch.tensor([seq], device="cuda")},
+                          max_len=192)
+    if unrotate:
+        for name in ("k", "v"):
+            cache[name].copy_(torch.roll(cache[name], -(len(seq) % cache[name].shape[2]), 2))
+    errs = []
+    for _ in range(steps):
+        tok = torch.argmax(lg, -1)
+        seq.append(int(tok[0]))
+        lg, cache = M.decode_step(params, cfg, cache, tok)
+        full, _ = M.forward(params, oracle, {"tokens": torch.tensor([seq], device="cuda")})
+        diff = (torch.log_softmax(lg[:, :cfg.vocab_size].float(), -1)
+                - torch.log_softmax(full[:, -1, :cfg.vocab_size].float(), -1))
+        errs.append(diff.abs().max().item())
+    return errs
+
+
+def check_rolling(M, cfg, params, window=64, prompt=range(5, 105), steps=6):
+    """Phase 4: the rolling buffer's decode after a prompt longer than the
+    buffer (100 tokens into 64 rows, 100 % 64 != 0) against the full forward
+    under the window mask, on log-softmax. The bound is 1.5 times the same
+    distance for a cache of all 192 rows with no window, two bf16 roundings
+    of the same model (~0.09 at full width). A row written over while still
+    in the window moves the log-softmax far more: the same cache with its
+    rows unrotated must exceed the bound, or the check could not see it."""
+    swa = dataclasses.replace(cfg, sliding_window=window)
+    errs = {"full cache": _decode_vs_forward(M, params, cfg, prompt, steps),
+            "rolling": _decode_vs_forward(M, params, swa, prompt, steps),
+            "rolling, rows unrotated": _decode_vs_forward(M, params, swa, prompt, steps,
+                                                          unrotate=True)}
+    bound = 1.5 * max(errs["full cache"])
+    print(f"phase 4 {cfg.name} rolling window {window}, {len(prompt)}-token prompt, decode vs "
+          f"full forward, max |log-softmax difference| per step (bound {bound:.4f}): "
+          f"{json.dumps(errs)}", flush=True)
+    assert max(errs["rolling"]) <= bound, errs
+    assert min(errs["rolling, rows unrotated"]) > bound, errs
 
 
 def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
@@ -868,6 +926,30 @@ def main():
                                             (4, 4096, 1, True, timed)):
             cases["ssd_scan"].append(
                 ssd_case(ops, gen, flush, b, s, 80, 64, g, 128, dtype, with_h0, timed_ssd))
+    # zamba2-1.2b's shapes and head_dim 32, from a generator of their own, so
+    # that the cases above keep the inputs they had before these were added
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        # the shared attention (32 heads of 64, grp 1) at zamba2's prompts and a
+        # long one; the reduced configs' head_dim 32 (4 heads over 2)
+        for s, h, kv, d in ((3, 32, 32, 64), (19, 32, 32, 64), (2048, 32, 32, 64),
+                            (19, 4, 2, 32)):
+            cases["flash_attention"].append(
+                flash_case(ops, gen, flush, 1, s, h, kv, d, dtype, None, timed))
+        # zamba2's serving step (4 sequences, Smax 192) and a long cache; reduced
+        # qwen2-7b's step under the serving CLI (Smax 160, head_dim 32)
+        for h, kv, d, smax in ((32, 32, 64, 192), (32, 32, 64, 4096), (4, 2, 32, 160)):
+            cases["decode_attention"].append(
+                decode_case(ops, gen, flush, 4, h, kv, d, smax, dtype, None, timed))
+        # the shared attention sharded x4 (head_dim 64, grp 1)
+        cases["decode_attention_partials"].append(
+            partials_case(ops, da, gen, flush, 192, [65, 10, 192, 150], dtype, None, timed,
+                          h=32, kv=32, d=64))
+        # zamba2's prompts of 3 and 19 tokens (64 heads, N = 64)
+        for s, timed_ssd in ((3, False), (19, timed)):
+            cases["ssd_scan"].append(
+                ssd_case(ops, gen, flush, 1, s, 64, 64, 1, 64, dtype, False, timed_ssd))
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)
@@ -890,10 +972,26 @@ def main():
     assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
     launches["flash_attention"] = counts["flash_attention"]
     launches["decode_attention"] = counts["decode_attention"]
-    _profile_steps(M, params, engine, cfg.name, ("decode_attention", "decode_attention_kernel"),
-                   ("flash_attention", "flash_attention_bf16_kernel"))
+    decode_k = [("decode_attention", "decode_attention_kernel")]
+    flash_k = [("flash_attention", "flash_attention_bf16_kernel")]
+    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
     check_model(M, cfg, params, engine, cfg.name)
     del engine
+
+    # the same weights under a sliding window of 64: a rolling buffer of 64
+    # rows (max_len 192), a 100-token prompt rolled into it
+    cfg_swa = dataclasses.replace(cfg, sliding_window=64)
+    engine = ServingEngine(cfg_swa, params, max_batch=4, max_len=192, device="cuda")
+    assert engine.cache["k"].shape[2] == 64
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    check_model(M, cfg_swa, params, engine, f"{cfg.name} rolling window 64",
+                prompt=range(5, 105))
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"phase 4 {cfg.name} rolling window 64 launches: {counts}", flush=True)
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
+    del engine
+    check_rolling(M, cfg, params)
 
     # the same weights, sequence-sharded over 4 shards of the cache on this card
     mesh = make_local_mesh(4)
@@ -912,7 +1010,7 @@ def main():
         assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
         if kv_dtype == "bfloat16":
             launches["decode_attention_partials"] = counts["decode_attention_partials"]
-        _profile_steps(M, params, engine, label, partials, False)
+        _profile_steps(M, params, engine, label, [partials], None)
         if kv_dtype == "bfloat16":
             # a 100-token prompt: the slot's keys span the first three shards
             check_model(M, cfg, params, engine, label, need=6, prompt=range(5, 105))
@@ -929,10 +1027,38 @@ def main():
     assert counts["flash_attention"] == counts["decode_attention"] == 0, counts
     assert counts["decode_attention_partials"] == 0, counts
     launches["ssd_scan"] = counts["ssd_scan"]
-    _profile_steps(M, params, engine, cfg.name, None, ("ssd_scan", "ssd_scan_kernel"))
+    ssd_k = [("ssd_scan", "ssd_scan_kernel")]
+    _profile_steps(M, params, engine, cfg.name, [], ssd_k)
     check_model(M, cfg, params, engine, cfg.name)
     del engine, params
     torch.cuda.empty_cache()
+
+    # the hybrid: 38 Mamba2 layers, one shared attention block (head_dim 64)
+    # applied after every 6th, fresh K/V each time
+    cfg = get_config("zamba2-1.2b")
+    params = init_model(M, cfg)
+    engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
+    groups = M.hybrid_split(cfg)[0]
+    assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
+    assert counts["flash_attention"] == groups * prefills > 0, counts
+    assert counts["decode_attention"] == groups * engine_steps > 0, counts
+    assert counts["decode_attention_partials"] == 0, counts
+    _profile_steps(M, params, engine, cfg.name, decode_k, ssd_k + flash_k)
+    check_model(M, cfg, params, engine, cfg.name)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # the serving CLI on its default device: reduced qwen2-7b, head_dim 32
+    from repro_torch.launch import serve
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.time()
+    serve.main(["--arch", "qwen2-7b", "--episodes", "1"])
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"phase 4 serve CLI --arch qwen2-7b (reduced, cuda): {time.time() - t0:.1f} s, "
+          f"launches {counts}", flush=True)
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
 
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
     for mod, attr in counters.values():

@@ -54,13 +54,23 @@
 //   others leave at once, and a row with keys in one split (or none) has
 //   its block write the output itself. Loads that a block waits on (q, the splits' partials)
 //   are issued together, so each costs one trip to memory.
+//
+// Head dims: the head_dim D is a template parameter, built for 32, 64
+//   (zamba2-1.2b's shared attention, musicgen-medium) and 128 (the dense
+//   configs). It sizes the rings (rows padded to 40, 72 or 136 bf16, which
+//   keep an ldmatrix phase's eight rows on distinct banks), the fragments,
+//   the q staging and the merge buffers. Both merges give each thread
+//   (group row, head dim) pairs, e = tid, tid + NT, ... over grp x D, so all
+//   128 threads work at every D and each element still sums its warps, then
+//   its splits, in a fixed order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int D = 128;     // head_dim, the only one built
 constexpr int NW = 4;      // warps per block
 constexpr int NT = NW * 32;
 constexpr int CK = 16;     // keys per warp chunk (one mma k-step of P V)
@@ -71,15 +81,19 @@ constexpr float NEG_INF = -1e30f;
 
 // padded row stride of a staged cache row: 16 more bytes, so the 8 rows an
 // ldmatrix phase reads fall into distinct banks
-template <typename T> __host__ __device__ constexpr int row_stride() { return D + 16 / (int)sizeof(T); }
-template <typename T> __host__ __device__ constexpr int ring_bytes() {
-  return NW * NST * 2 * CK * row_stride<T>() * (int)sizeof(T);
+template <typename T, int D> __host__ __device__ constexpr int row_stride() {
+  return D + 16 / (int)sizeof(T);
 }
-constexpr int QS_BYTES = MAXG * D * 4;
-constexpr int MERGE_BYTES = (NW * MAXG * D + 2 * NW * MAXG) * 4;
-static_assert(MERGE_BYTES <= ring_bytes<__nv_bfloat16>(), "merge area overlays the ring");
-static_assert((2 * MAX_SPLITS + 2) * MAXG * 4 <= MERGE_BYTES, "the splits' m and l fit");
-template <typename T> __host__ __device__ constexpr int smem_bytes() { return QS_BYTES + ring_bytes<T>(); }
+template <typename T, int D> __host__ __device__ constexpr int ring_bytes() {
+  return NW * NST * 2 * CK * row_stride<T, D>() * (int)sizeof(T);
+}
+template <int D> __host__ __device__ constexpr int qs_bytes() { return MAXG * D * 4; }
+template <int D> __host__ __device__ constexpr int merge_bytes() {
+  return (NW * MAXG * D + 2 * NW * MAXG) * 4;
+}
+template <typename T, int D> __host__ __device__ constexpr int smem_bytes() {
+  return qs_bytes<D>() + ring_bytes<T, D>();
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -136,9 +150,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // and the next; a B fragment's two hold rows 2 t (+1) and 2 t + 8 (+1) of
 // column g.
 
-// Q fragments (the A operand over 8 k-steps of 16 head dims) from the
+// Q fragments (the A operand over D / 16 k-steps of 16 head dims) from the
 // staged fp32 q: hi = bf16(q), and with an fp32 query lo = bf16(q - hi).
-template <bool LO>
+template <bool LO, int D>
 struct QFrags {
   uint32_t hi[D / 16][4];
   uint32_t lo[LO ? D / 16 : 1][4];
@@ -160,10 +174,10 @@ struct QFrags {
 };
 
 // S (16 query rows x 16 keys, two n8 tiles) of one staged chunk.
-template <bool LO>
-__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>& qf,
+template <bool LO, int D>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO, D>& qf,
                                              const __nv_bfloat16* ks, const float*, int lane) {
-  constexpr int RS = row_stride<__nv_bfloat16>();
+  constexpr int RS = row_stride<__nv_bfloat16, D>();
   const __nv_bfloat16* base = ks + ((lane >> 4) * 8 + (lane & 7)) * RS + ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kstep = 0; kstep < D / 16; ++kstep) {
@@ -177,10 +191,10 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>&
     }
   }
 }
-template <bool LO>
-__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>&,
+template <bool LO, int D>
+__device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO, D>&,
                                              const float* ks, const float* qs, int lane) {
-  constexpr int RS = row_stride<float>();
+  constexpr int RS = row_stride<float, D>();
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 4
   for (int c = 0; c < D; ++c) {
@@ -196,10 +210,11 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2][4], const QFrags<LO>&
   }
 }
 
-// acc (16 rows x 128 dims, 16 n8 tiles) += P (16 x 16 keys) V (16 keys x 128)
+// acc (16 rows x D dims, D / 8 n8 tiles) += P (16 x 16 keys) V (16 keys x D)
+template <int D>
 __device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p)[2][4],
                                          const __nv_bfloat16* vs, int lane) {
-  constexpr int RS = row_stride<__nv_bfloat16>();
+  constexpr int RS = row_stride<__nv_bfloat16, D>();
   const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
                          pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
   const __nv_bfloat16* base = vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * RS + (lane >> 4) * 8;
@@ -211,9 +226,10 @@ __device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p
     mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
   }
 }
+template <int D>
 __device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p)[2][4],
                                          const float* vs, int lane) {
-  constexpr int RS = row_stride<float>();
+  constexpr int RS = row_stride<float, D>();
   const int t = lane & 3;
 #pragma unroll
   for (int key = 0; key < CK; ++key) {
@@ -236,16 +252,22 @@ __device__ __forceinline__ void chunk_pv(float (&acc)[D / 8][4], const float (&p
 // sequences batch_stride elements apart (Smax * KV * D for a whole cache,
 // more for a slice of one). part holds each split's acc (grp x D), then
 // every split's m and l; counter one int per (batch, kv head).
-template <typename TQ, typename T, typename TO, bool PARTIALS>
+template <typename TQ, typename T, typename TO, bool PARTIALS, int D>
 __global__ void __launch_bounds__(NT) decode_attention_kernel(
     const TQ* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ lengths, TO* __restrict__ o, float* __restrict__ m_out,
     float* __restrict__ l_out, float* __restrict__ part, int* __restrict__ counter, int Smax,
     long batch_stride, int H, int KV, int window, float scale, int kps) {
-  constexpr int RS = row_stride<T>();
+  constexpr int RS = row_stride<T, D>();
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int CPR = D / EPC;         // copies per cache row
+  constexpr int QS_BYTES = qs_bytes<D>();
   constexpr bool QLO = sizeof(TQ) == 4 && sizeof(T) == 2;
+  static_assert(merge_bytes<D>() <= ring_bytes<__nv_bfloat16, D>(),
+                "merge area overlays the ring");
+  static_assert((2 * MAX_SPLITS + 2) * MAXG * 4 <= merge_bytes<D>(), "the splits' m and l fit");
+  static_assert(CK * CPR % 32 == 0 && MAXG * D % NT == 0 && NT % D == 0,
+                "copies, q staging and the cross-split merge fill whole rounds");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
   float* qs = reinterpret_cast<float*>(smem);
@@ -305,7 +327,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
 #pragma unroll
   for (int j = 0; j < MAXG * D / NT; ++j) qs[tid + j * NT] = qv[j];
   __syncthreads();
-  QFrags<QLO> qf;
+  QFrags<QLO, D> qf;
   if constexpr (sizeof(T) == 2) qf.load(qs, g, t);
 
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
@@ -360,7 +382,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
       acc[nt][2] *= c1;
       acc[nt][3] *= c1;
     }
-    chunk_pv(acc, s, vs, lane);
+    chunk_pv<D>(acc, s, vs, lane);
     __syncwarp();  // every lane is done with this stage before it is refilled
     if (i + NST < mine) issue(i + NST);
     cp_async_commit();
@@ -393,38 +415,41 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
   __syncthreads();
 
   const long row0 = (long)b * H + (long)kvh * grp;  // (b, kvh, 0) of (B, KV, grp)
-  auto emit = [&](int gi, float a, float mm, float ll) {
+  // group row gi, head dim c; the thread of column 0 writes the row's m and l
+  auto emit = [&](int gi, int c, float a, float mm, float ll) {
     if constexpr (PARTIALS) {
-      o[(row0 + gi) * D + tid] = from_float<TO>(a);
-      if (tid == 0) {
+      o[(row0 + gi) * D + c] = from_float<TO>(a);
+      if (c == 0) {
         m_out[row0 + gi] = mm;
         l_out[row0 + gi] = ll;
       }
     } else {
-      o[(row0 + gi) * D + tid] = from_float<TO>(a / fmaxf(ll, 1e-30f));
+      o[(row0 + gi) * D + c] = from_float<TO>(a / fmaxf(ll, 1e-30f));
     }
   };
-  // one thread per head dim; splits and warps merge in a fixed order
+  // (group row, head dim) pairs e = tid, tid + NT, ...; at D = 128 a thread
+  // keeps one head dim over every row. Splits and warps merge in a fixed order.
   const long rowkv = (long)b * KV + kvh;
   float* part_acc = part + rowkv * n_splits * grp * D;  // slots for every planned split
   float* part_m = part + (long)gridDim.z * KV * n_splits * grp * D + rowkv * n_splits * grp;
   float* part_l = part_m + (long)gridDim.z * KV * n_splits * grp;
-  for (int gi = 0; gi < grp; ++gi) {
+  for (int e = tid; e < grp * D; e += NT) {
+    const int gi = e / D, c = e % D;
     float mm = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w * MAXG + gi]);
     float a = 0.f, ll = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float c = expf(wm[w * MAXG + gi] - mm);
-      a += wacc[(w * MAXG + gi) * D + tid] * c;
-      ll += wl[w * MAXG + gi] * c;
+      const float cw = expf(wm[w * MAXG + gi] - mm);
+      a += wacc[(w * MAXG + gi) * D + c] * cw;
+      ll += wl[w * MAXG + gi] * cw;
     }
     if (n_real == 1) {
-      emit(gi, a, mm, ll);
+      emit(gi, c, a, mm, ll);
     } else {
-      part_acc[((long)split * grp + gi) * D + tid] = a;
-      if (tid == 0) {
+      part_acc[((long)split * grp + gi) * D + c] = a;
+      if (c == 0) {
         part_m[split * grp + gi] = mm;
         part_l[split * grp + gi] = ll;
       }
@@ -462,59 +487,103 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     rl[tid] = ll;
   }
   __syncthreads();
-  // one thread per head dim; the rows of SB splits are loaded together,
-  // then summed in split order
+  // each thread keeps head dim c of the group rows r0, r0 + RP, ... (every
+  // row at D = 128, every second at 64, every fourth at 32); the rows of SB
+  // splits are loaded together, then summed in split order
   constexpr int SB = 4;
-  float a[MAXG];
+  constexpr int RP = NT / D;    // threads per head dim
+  constexpr int MR = MAXG / RP;  // group rows per thread, at most
+  const int c = tid % D, r0 = tid / D;
+  float a[MR];
 #pragma unroll
-  for (int gi = 0; gi < MAXG; ++gi) a[gi] = 0.f;
+  for (int i = 0; i < MR; ++i) a[i] = 0.f;
   for (int sp0 = 0; sp0 < n_real; sp0 += SB) {
-    float x[SB][MAXG];
+    float x[SB][MR];
 #pragma unroll
     for (int j = 0; j < SB; ++j)
 #pragma unroll
-      for (int gi = 0; gi < MAXG; ++gi)
-        x[j][gi] = gi < grp && sp0 + j < n_real
-                       ? __ldcg(part_acc + ((long)(sp0 + j) * grp + gi) * D + tid) : 0.f;
+      for (int i = 0; i < MR; ++i) {
+        const int gi = r0 + i * RP;
+        x[j][i] = gi < grp && sp0 + j < n_real
+                      ? __ldcg(part_acc + ((long)(sp0 + j) * grp + gi) * D + c) : 0.f;
+      }
 #pragma unroll
     for (int j = 0; j < SB; ++j)
 #pragma unroll
-      for (int gi = 0; gi < MAXG; ++gi)
-        if (gi < grp && sp0 + j < n_real) a[gi] += x[j][gi] * sm[(sp0 + j) * grp + gi];
+      for (int i = 0; i < MR; ++i) {
+        const int gi = r0 + i * RP;
+        if (gi < grp && sp0 + j < n_real) a[i] += x[j][i] * sm[(sp0 + j) * grp + gi];
+      }
   }
 #pragma unroll
-  for (int gi = 0; gi < MAXG; ++gi)
-    if (gi < grp) emit(gi, a[gi], rm[gi], rl[gi]);
+  for (int i = 0; i < MR; ++i) {
+    const int gi = r0 + i * RP;
+    if (gi < grp) emit(gi, c, a[i], rm[gi], rl[gi]);
+  }
   if (tid == 0) counter[rowkv] = 0;  // ready for the next launch
 }
 
-template <typename TQ, typename T, typename TO, bool PARTIALS>
+template <typename TQ, typename T, typename TO, bool PARTIALS, int D>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* o,
            float* m, float* l, void* part, void* counter, int B, int Smax, long batch_stride,
            int H, int KV, int window, float scale, int n_splits, int kps, cudaStream_t stream) {
-  auto kernel = decode_attention_kernel<TQ, T, TO, PARTIALS>;
+  auto kernel = decode_attention_kernel<TQ, T, TO, PARTIALS, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T, D>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(n_splits, KV, B);
-  kernel<<<grid, NT, smem_bytes<T>(), stream>>>(
+  kernel<<<grid, NT, smem_bytes<T, D>(), stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), static_cast<TO*>(o), m, l, static_cast<float*>(part),
       static_cast<int*>(counter), Smax, batch_stride, H, KV, window, scale, kps);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int B, int Smax, int H, int KV, int d, int n_splits, int kps,
-               const void* part, const void* counter) {
-  return B <= 0 || Smax <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG || d != D ||
-         n_splits <= 0 || n_splits > MAX_SPLITS || kps <= 0 || kps % (NW * CK) != 0 ||
-         counter == nullptr || (n_splits > 1 && part == nullptr);
+bool bad_shape(int B, int Smax, int H, int KV, int n_splits, int kps, const void* part,
+               const void* counter) {
+  return B <= 0 || Smax <= 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG ||
+         n_splits <= 0 || n_splits > MAX_SPLITS ||
+         kps <= 0 || kps % (NW * CK) != 0 || counter == nullptr ||
+         (n_splits > 1 && part == nullptr);
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const void* lengths, void* o,
+               void* part, void* counter, int B, int Smax, int H, int KV, int window,
+               float scale, int dtype, int n_splits, int kps, cudaStream_t st) {
+  const long bs = (long)Smax * KV * D;
+  if (dtype == 0)
+    return launch<float, float, float, false, D>(q, k, v, lengths, o, nullptr, nullptr, part,
+                                                 counter, B, Smax, bs, H, KV, window, scale,
+                                                 n_splits, kps, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false, D>(
+        q, k, v, lengths, o, nullptr, nullptr, part, counter, B, Smax, bs, H, KV, window,
+        scale, n_splits, kps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_partials(const void* q, const void* k, const void* v, const void* lengths,
+                    void* acc, float* m, float* l, void* part, void* counter, int B, int chunk,
+                    long batch_stride, int H, int KV, int window, float scale, int kv_dtype,
+                    int n_splits, int kps, cudaStream_t st) {
+  if (batch_stride < (long)chunk * KV * D) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype == 0)
+    return launch<float, float, float, true, D>(q, k, v, lengths, acc, m, l, part, counter, B,
+                                                chunk, batch_stride, H, KV, window, scale,
+                                                n_splits, kps, st);
+  if (kv_dtype == 1)
+    return launch<float, __nv_bfloat16, float, true, D>(q, k, v, lengths, acc, m, l, part,
+                                                        counter, B, chunk, batch_stride, H, KV,
+                                                        window, scale, n_splits, kps, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q (B,H,D), k/v (B,Smax,KV,D), lengths (B,) int32, o (B,H,D), all contiguous.
-// D must be 128, the head_dim of every dense config the port serves.
+// D is 32, 64 or 128, the head_dims the kernel is built for.
 // dtype: 0 float32, 1 bfloat16. window < 0 means none. n_splits splits of
 // kps keys (a multiple of 64) from each row's first visited key; part is fp32
 // scratch of n_splits * B * H * (D + 2) floats (unused with one split) and
@@ -525,19 +594,19 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int B, int Smax, int H, int KV, int d, int window,
                                     float scale, int dtype, int n_splits, int kps,
                                     void* stream) {
-  if (bad_shape(B, Smax, H, KV, d, n_splits, kps, part, counter))
+  if (bad_shape(B, Smax, H, KV, n_splits, kps, part, counter))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long bs = (long)Smax * KV * D;
-  if (dtype == 0)
-    return launch<float, float, float, false>(q, k, v, lengths, o, nullptr, nullptr, part,
-                                              counter, B, Smax, bs, H, KV, window, scale,
-                                              n_splits, kps, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
-        q, k, v, lengths, o, nullptr, nullptr, part, counter, B, Smax, bs, H, KV, window,
-        scale, n_splits, kps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto dim) {
+    return launch_fwd<decltype(dim)::value>(q, k, v, lengths, o, part, counter, B, Smax, H,
+                                            KV, window, scale, dtype, n_splits, kps, st);
+  };
+  switch (d) {
+    case 32: return run(std::integral_constant<int, 32>{});
+    case 64: return run(std::integral_constant<int, 64>{});
+    case 128: return run(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The partials over a slice of the cache. q (B,H,D) fp32, contiguous, H =
@@ -552,21 +621,22 @@ extern "C" int decode_attention_partials_fwd(const void* q, const void* k, const
                                              long batch_stride, int H, int KV, int d,
                                              int window, float scale, int kv_dtype,
                                              int n_splits, int kps, void* stream) {
-  if (bad_shape(B, chunk, H, KV, d, n_splits, kps, part, counter) ||
-      batch_stride < (long)chunk * KV * D)
+  if (bad_shape(B, chunk, H, KV, n_splits, kps, part, counter))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* mp = static_cast<float*>(m);
   float* lp = static_cast<float*>(l);
-  if (kv_dtype == 0)
-    return launch<float, float, float, true>(q, k, v, lengths, acc, mp, lp, part, counter, B,
-                                             chunk, batch_stride, H, KV, window, scale,
-                                             n_splits, kps, st);
-  if (kv_dtype == 1)
-    return launch<float, __nv_bfloat16, float, true>(q, k, v, lengths, acc, mp, lp, part,
-                                                     counter, B, chunk, batch_stride, H, KV,
-                                                     window, scale, n_splits, kps, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto dim) {
+    return launch_partials<decltype(dim)::value>(q, k, v, lengths, acc, mp, lp, part, counter,
+                                                 B, chunk, batch_stride, H, KV, window, scale,
+                                                 kv_dtype, n_splits, kps, st);
+  };
+  switch (d) {
+    case 32: return run(std::integral_constant<int, 32>{});
+    case 64: return run(std::integral_constant<int, 64>{});
+    case 128: return run(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -33,6 +33,14 @@
 //   as scalar FMA; that body stays as the fp32 instantiation (tests and
 //   chip_smoke only): TF32 would miss its 2e-5 tolerance. The next step is
 //   wgmma with TMA loads and warp specialisation.
+//
+// Head dims: both bodies take the head_dim as a template parameter, built
+//   for 32, 64 (zamba2-1.2b's shared attention, musicgen-medium) and 128
+//   (the dense configs). It sizes the Q fragments, the accumulator, the copy
+//   loop and the padded row stride of the staged tiles: 40, 72 or 136 bf16
+//   (80, 144 or 272 bytes), each of which puts the eight rows of an ldmatrix
+//   phase on distinct banks. Shared memory for the Q tile and 2 K/V stages:
+//   25, 45 or 85 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,10 +170,11 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
   }
 }
 
+template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_f32_kernel<float, 128><<<grid, NT, 0, stream>>>(
+  flash_attention_f32_kernel<float, D><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), Sq, Sk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -173,12 +182,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 
 // ---- bf16: tensor cores -------------------------------------------------
 
-constexpr int TD = 128;          // head_dim
 constexpr int TBQ = 64;          // query rows per block, 16 per warp
 constexpr int TBK = 64;          // keys per tile
-constexpr int TRS = TD + 8;      // padded row stride (bf16 elements): +16 bytes
-constexpr int TILE = TBK * TRS;  // elements of one staged K or V tile
-constexpr int TSMEM = (TBQ * TRS + 2 * 2 * TILE) * 2;  // Q tile + 2 stages of K and V
+// per head_dim TD: the padded row stride (bf16 elements, +16 bytes), one
+// staged K or V tile, and the dynamic shared memory (Q tile + 2 K/V stages)
+template <int TD> __host__ __device__ constexpr int trs() { return TD + 8; }
+template <int TD> __host__ __device__ constexpr int tile() { return TBK * trs<TD>(); }
+template <int TD> __host__ __device__ constexpr int tsmem() {
+  return (TBQ * trs<TD>() + 2 * 2 * tile<TD>()) * 2;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -217,22 +229,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 64 rows of 128 bf16 from global (rows row0.. of a (rows, stride) array) to
+// 64 rows of TD bf16 from global (rows row0.. of a (rows, stride) array) to
 // a padded shared tile; rows at or past n_rows are zero-filled
+template <int TD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long stride, int row0, int n_rows, int tid) {
+  static_assert(64 * TD / 8 % NT == 0, "the 16-byte copies of a tile fill whole rounds");
 #pragma unroll
   for (int j = 0; j < 64 * TD / 8 / NT; ++j) {
     const int e = tid + j * NT, r = e / (TD / 8), col = e % (TD / 8) * 8;
     const bool in = row0 + r < n_rows;
-    cp_async16(dst + r * TRS + col, src + (in ? (row0 + r) * stride + col : 0), in);
+    cp_async16(dst + r * trs<TD>() + col, src + (in ? (row0 + r) * stride + col : 0), in);
   }
 }
 
+template <int TD>
 __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
     int KV, int causal, int window, float scale) {
+  constexpr int TRS = trs<TD>();
+  constexpr int TILE = tile<TD>();
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ring = qs + TBQ * TRS;  // stage s: K at ring + 2 s TILE, V after it
@@ -259,16 +276,16 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   const int k_begin = window >= 0 ? max(0, qpos_lo - window + 1) / TBK * TBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + TBK - 1) / TBK : 0;
 
-  load_tile(qs, qb, q_stride, q0, Sq, tid);
+  load_tile<TD>(qs, qb, q_stride, q0, Sq, tid);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_tile(ring, kb, kv_stride, k_begin, Sk, tid);
-    load_tile(ring + TILE, vb, kv_stride, k_begin, Sk, tid);
+    load_tile<TD>(ring, kb, kv_stride, k_begin, Sk, tid);
+    load_tile<TD>(ring + TILE, vb, kv_stride, k_begin, Sk, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();  // the Q tile
   __syncthreads();
-  uint32_t qa[TD / 16][4];  // A fragments of this warp's 16 rows, 8 k-steps
+  uint32_t qa[TD / 16][4];  // A fragments of this warp's 16 rows, TD / 16 k-steps
   {
     const __nv_bfloat16* base =
         qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TRS + (lane >> 4) * 8;
@@ -287,8 +304,8 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const int k0 = k_begin + i * TBK;
     if (i + 1 < n_tiles) {  // the next tile's copy overlaps this tile's products
       __nv_bfloat16* nxt = ring + ((i + 1) & 1) * 2 * TILE;
-      load_tile(nxt, kb, kv_stride, k0 + TBK, Sk, tid);
-      load_tile(nxt + TILE, vb, kv_stride, k0 + TBK, Sk, tid);
+      load_tile<TD>(nxt, kb, kv_stride, k0 + TBK, Sk, tid);
+      load_tile<TD>(nxt + TILE, vb, kv_stride, k0 + TBK, Sk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile
@@ -402,33 +419,45 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   }
 }
 
+template <int TD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                 int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
+      flash_attention_bf16_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize, tsmem<TD>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + TBQ - 1) / TBQ, H, B);
-  flash_attention_bf16_kernel<<<grid, NT, TSMEM, stream>>>(
+  flash_attention_bf16_kernel<TD><<<grid, NT, tsmem<TD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
+           int KV, int causal, int window, float scale, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// q (B,Sq,H,D), k/v (B,Sk,KV,D), o (B,Sq,H,D), all contiguous. D must be 128,
-// the head_dim of every dense config the port serves. dtype: 0 float32,
+// q (B,Sq,H,D), k/v (B,Sk,KV,D), o (B,Sq,H,D), all contiguous. D is 32, 64
+// or 128, the head_dims the kernel is built for. dtype: 0 float32,
 // 1 bfloat16. window < 0 means none. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int Sq, int Sk, int H, int KV, int D, int causal,
                                    int window, float scale, int dtype, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sq > Sk || KV <= 0 || H % KV != 0 || D != 128)
+  if (B <= 0 || Sq <= 0 || Sq > Sk || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-  if (dtype == 1) return launch_bf16(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

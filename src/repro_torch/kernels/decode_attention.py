@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 128  # the head_dim of every dense config the port serves
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS  # the head_dims the kernel is built for
 MAX_GROUP = 16  # query heads per kv head the kernel holds (MAXG in the source)
 _BLOCK_K = 1024  # cache rows per step of the plain version's loop
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM, the card the split is sized for
@@ -218,8 +218,8 @@ def _check_common(who, q, k_cache, v_cache, lengths, window):
     if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv or lengths.shape != (b,):
         raise ValueError(f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and lengths "
                          f"{tuple(lengths.shape)} do not match")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIM}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIMS}")
     if h // kv > MAX_GROUP:
         raise ValueError(f"GQA group {h // kv} exceeds the kernel's {MAX_GROUP}")
     if window is not None and window < 1:

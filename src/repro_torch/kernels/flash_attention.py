@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 128  # the head_dim of every dense config the port serves
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS  # the head_dims the kernel is built for
 _BLOCK_K = 128  # keys per step of the plain version's loop
 
 launches = 0  # kernel launches made by flash_attention_kernel; callers may reset it
@@ -100,8 +100,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIM}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIMS}")
     if sq > k.shape[1]:
         raise ValueError(f"more queries ({sq}) than keys ({k.shape[1]})")
     if window is not None and window < 1:

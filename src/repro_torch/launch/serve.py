@@ -2,13 +2,15 @@
 
 An agent loop whose reasoning steps decode on the ServingEngine while tool
 calls run on the host; B-PASTE speculates future branches into free batch
-slots. Serves the dense family (qwen2-7b, the default) and the Mamba2
-family (mamba2-2.7b) unchanged: the engine copies whichever cache leaves
-the model's prefill returns. Runs on the GPU unless ``--device cpu`` is
-given:
+slots. Serves the dense family (qwen2-7b, the default), the Mamba2 family
+(mamba2-2.7b) and the hybrid family (zamba2-1.2b: Mamba2 layers and a
+shared attention block) unchanged: the engine copies whichever cache
+leaves the model's prefill returns. Runs on the GPU unless ``--device cpu``
+is given:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --episodes 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --episodes 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
 
 ``main`` mirrors ``repro.launch.serve`` (a reduced model; the loop there
 admits no speculative slot). :func:`serve_agent_loop` is the loop that
@@ -89,7 +91,7 @@ def serve_agent_loop(spec_on: bool, cfg, engine_or_params, episodes, pattern_eng
     return time.time() - t0, decode_steps, hits, spec
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-7b")
     ap.add_argument("--episodes", type=int, default=3)
@@ -97,7 +99,7 @@ def main():
     ap.add_argument("--max-len", type=int, default=160)
     ap.add_argument("--spec-slots", type=int, default=2)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).reduced()
     gen = torch.Generator(device=args.device).manual_seed(0)

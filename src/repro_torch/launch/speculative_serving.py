@@ -20,7 +20,9 @@ The runtime's scorer and fused admission pass run their tensor paths on
 With ``--with-llm``, also serves a reduced LLM through
 ``launch/serve.py::serve_agent_loop``: reasoning tokens decode on the
 ServingEngine and, during each tool call, B-PASTE prefills predicted
-observations into free slots (promotion = zero-copy slot re-tag).
+observations into free slots (promotion = zero-copy slot re-tag). ``--arch``
+takes a dense (qwen2-7b), a Mamba2 (mamba2-2.7b) or a hybrid (zamba2-1.2b)
+config.
 
   PYTHONPATH=src python -m repro_torch.launch.speculative_serving --with-llm --arch qwen2-7b
 """

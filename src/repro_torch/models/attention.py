@@ -1,10 +1,20 @@
 """GQA attention block: init + full-sequence/prefill/decode application.
 
 Ported: the plain (bf16 or f32) and the int8 KV cache, with or without a
-sliding window that fits the cache, and the sequence-sharded split-KV
-decode (``attn_decode_sharded``) over a local mesh of shards on one device.
-Not ported yet, and raising NotImplementedError: the rolling-buffer
-sliding-window cache and head padding.
+sliding window, and the sequence-sharded split-KV decode
+(``attn_decode_sharded``) over a local mesh of shards on one device. Not
+ported yet, and raising NotImplementedError: head padding.
+
+With a sliding window no longer than the cache (``smax <= window``, see
+:func:`_decode_plan`), the cache is a rolling buffer that holds position p at
+row ``p % smax``: a prefill keeps the last ``smax`` positions, decode writes
+each new row at ``length % smax``, over the one that has just left the
+window, and attends over the ``min(length + 1, smax)`` rows held, with no
+window mask. The rows are rotated, which softmax does not see, since RoPE
+was applied to each key before it was stored. The JAX package keeps a long
+prompt's positions unrotated instead, so its decode overwrites a row still
+in the window unless the prompt's length is a multiple of ``smax``; this
+module does not copy that.
 
 An int8 cache is a (values int8 (B,Smax,KV,hd), scales f32 (B,Smax,KV))
 pair for each of K and V, quantized per head vector (``kv_quantize``) as in
@@ -88,15 +98,18 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str) -> to
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl: str):
     """Prefill: returns (out (B,S,D), k_cache, v_cache (B,Smax,KV,hd)), each
     cache an (int8 values, f32 scales) pair when ``cfg.kv_cache_dtype`` is
-    int8."""
+    int8. Under a sliding window with ``smax < s`` the cache is a rolling
+    buffer that keeps the last ``smax`` positions, position p at row
+    ``p % smax``."""
     check_supported(cfg)
     b, s, _ = x.shape
-    if cfg.sliding_window is not None and smax < s:
-        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
     q, k, v = _roped_qkv(p, x, cfg)
     o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
     out = o.reshape(b, s, -1) @ p["wo"]
-    pad = (0, 0, 0, 0, 0, smax - s)
+    if cfg.sliding_window is not None and smax < s:
+        # the last smax positions, position p at row p % smax as decode expects
+        k, v = (torch.roll(t[:, s - smax:], s % smax, dims=1) for t in (k, v))
+    pad = (0, 0, 0, 0, 0, smax - k.shape[1])
     k_cache, v_cache = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     if cfg.kv_cache_dtype == "int8":
         return out, kv_quantize(k_cache), kv_quantize(v_cache)
@@ -144,24 +157,32 @@ def attn_decode(
     the cache.  Returns out (B,1,D).
 
     The caches are updated in place: each sequence's new K/V row is written
-    at its length (clamped to Smax-1), and where the bool mask ``active``
-    (B,) is given, only active sequences' rows change. An int8 cache is
-    dequantized to ``x.dtype`` for the attention, as in the JAX package."""
+    at its length (clamped to Smax-1; at ``length % Smax`` in a rolling
+    buffer), and where the bool mask ``active`` (B,) is given, only active
+    sequences' rows change. An int8 cache is dequantized to ``x.dtype`` for
+    the attention, as in the JAX package."""
     check_supported(cfg)
     b = x.shape[0]
     smax = _cache_smax(k_cache)
-    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
-        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
     quant = cfg.kv_cache_dtype == "int8"
     q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
-    slot = torch.clamp(lengths, max=smax - 1).long()
+    slot, eff_len, window = _decode_plan(cfg, lengths, smax)
     index = (torch.arange(b, device=x.device), slot)
     _append(k_cache, v_cache, k_new, v_new, index, active)
     if quant:
         k_cache, v_cache = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
-    o = ops.decode_attention(q.contiguous(), k_cache, v_cache, lengths + 1,
-                             window=cfg.sliding_window, impl=impl)
+    o = ops.decode_attention(q.contiguous(), k_cache, v_cache, eff_len, window=window, impl=impl)
     return o.reshape(b, 1, -1) @ p["wo"]
+
+
+def _decode_plan(cfg: ModelConfig, lengths: torch.Tensor, smax: int):
+    """(slot of the new row, effective lengths, window) of a decode step: in
+    a rolling buffer the row goes to ``length % smax`` and the step attends
+    over the ``min(length + 1, smax)`` rows held with no window; otherwise
+    to ``min(length, smax - 1)``, over ``length + 1`` under the window."""
+    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
+        return (lengths % smax).long(), torch.clamp(lengths + 1, max=smax), None
+    return torch.clamp(lengths, max=smax - 1).long(), lengths + 1, cfg.sliding_window
 
 
 # ======================================================================
@@ -187,8 +208,6 @@ def attn_decode_sharded(
     b = x.shape[0]
     quant = cfg.kv_cache_dtype == "int8"
     smax = _cache_smax(k_cache)
-    if cfg.sliding_window is not None and smax <= cfg.sliding_window:
-        raise NotImplementedError("the rolling-buffer sliding-window cache is not ported")
     KV, hd, H = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
     nm = mesh_info.n_model
     chunk = smax // nm
@@ -196,8 +215,7 @@ def attn_decode_sharded(
     q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
     # pre-scaled f32 q, (B, KV*grp, hd) in kv-major order as the kernel reads it
     qg = (q.float() * hd ** -0.5).contiguous()
-    slot = torch.clamp(lengths, max=smax - 1).long()
-    eff_len = lengths + 1
+    slot, eff_len, win = _decode_plan(cfg, lengths, smax)
 
     # the new row lands on the one shard whose range holds its slot (the
     # reference's in_rng test), at its local position there
@@ -213,7 +231,6 @@ def attn_decode_sharded(
     if quant:  # every shard attends over its dequantized slice, made in one pass
         k_eff, v_eff = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
 
-    win = cfg.sliding_window
     offs = torch.arange(0, smax, chunk, device=x.device, dtype=lengths.dtype)
     eff_local = torch.clamp(eff_len[None, :] - offs[:, None], 0, chunk)      # (nm, B)
     parts = [ops.decode_attention_partials(

@@ -1,7 +1,8 @@
 """Top-level model: init / full-sequence forward / prefill / decode.
 
-Ported: the dense and the SSM (Mamba2) families, with token inputs. The
-MoE, hybrid, vlm and audio families raise NotImplementedError.
+Ported: the dense, the SSM (Mamba2) and the hybrid (zamba2: Mamba2 +
+shared attention) families, with token inputs. The MoE, vlm and audio
+families, and a hybrid with an int8 KV cache, raise NotImplementedError.
 
 Design notes
 ------------
@@ -9,12 +10,19 @@ Design notes
   layer (JAX stacks them on a leading L axis for ``lax.scan``); the forward
   is a Python loop over layers. :func:`params_from_numpy` splits the
   stacked arrays.
+* **hybrid**: G groups of ``attn_every`` Mamba2 layers, each group followed
+  by ONE shared attention block (``params["shared_attn"]``, the same
+  weights every time, fresh K/V per application), then a tail of
+  ``n_layers % attn_every`` Mamba2 layers (:func:`hybrid_split`). The
+  Mamba2 layers are the SSM family's, in the same loop.
 * **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
 * **caches** keep the JAX package's layouts: ``k``/``v`` ``(L, B, Smax, KV,
   hd)`` for the dense family (with ``kv_cache_dtype="int8"``, each a pair
   of int8 values ``(L, B, Smax, KV, hd)`` and f32 scales ``(L, B, Smax,
   KV)``), ``ssm_state`` = (conv_x, conv_B, conv_C, ssm) stacked on a
-  leading L axis for the SSM family, plus ``lengths`` (B,) int32.
+  leading L axis for the SSM family, both for the hybrid family (its
+  ``k``/``v`` are ``(G, B, max_len, KV, hd)``, one per application of the
+  shared block), plus ``lengths`` (B,) int32.
   :func:`decode_step` updates them in place.
 * **meshes**: :class:`MeshContext` describes a mesh of sequence shards
   (``launch.mesh.make_local_mesh``); with ``cfg.sharded_decode_attn`` a
@@ -49,12 +57,31 @@ class MeshContext(NamedTuple):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.frontend != "tokens":
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend != "tokens":
         raise NotImplementedError(
             f"family {cfg.family!r} with frontend {cfg.frontend!r} is not ported; "
-            "only the dense and ssm token families are")
-    if cfg.family == "dense":
+            "only the dense, ssm and hybrid token families are")
+    if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
+        # the JAX package's hybrid cache holds K/V in cfg.dtype while its
+        # prefill returns int8 (values, scales) pairs: no engine can hold both
+        raise NotImplementedError("an int8 KV cache is not ported for the hybrid family")
+    if cfg.family != "ssm":
         attn_mod.check_supported(cfg)
+
+
+def hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, layers_per_group, n_tail) of a hybrid config."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.attn_every, cfg.n_layers - g * cfg.attn_every
+
+
+def _shared_attn_index(cfg: ModelConfig, i: int) -> Optional[int]:
+    """In a hybrid, which application of the shared attention block follows
+    Mamba2 layer i (the last of each group of ``attn_every``; the tail has
+    none), else None."""
+    if cfg.family != "hybrid" or (i + 1) % cfg.attn_every:
+        return None
+    return (i + 1) // cfg.attn_every - 1
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -83,7 +110,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "blocks": [],
     }
     for _ in range(cfg.n_layers):
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             params["blocks"].append({
                 "ln": torch.ones((D,), dtype=dtype, device=device),
                 "ssm": ssm_mod.init_ssm_params(generator, cfg, dtype, device),
@@ -95,6 +122,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             "attn": attn_mod.init_attn_params(generator, cfg, dtype, device),
             "mlp": mlp_mod.init_mlp_params(generator, cfg, dtype, device),
         })
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "ln": torch.ones((D,), dtype=dtype, device=device),
+            "attn": attn_mod.init_attn_params(generator, cfg, dtype, device),
+        }
     return params
 
 
@@ -112,7 +144,8 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
     """Convert the JAX package's params pytree, given as nested dicts of numpy
     arrays (blocks stacked on axis 0, weights (in, out)), into this package's
     parameters on ``device``: ``A_log``, ``D`` and ``dt_bias`` in float32,
-    as the JAX package keeps them, every other leaf in ``cfg.dtype``."""
+    as the JAX package keeps them, every other leaf in ``cfg.dtype``. A
+    hybrid's ``shared_attn`` is one block, not stacked, and converts whole."""
     _check_family(cfg)
     dtype = _dtype(cfg)
 
@@ -159,10 +192,15 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
-    if cfg.family == "ssm":
-        for blk in params["blocks"]:
+    if cfg.family in ("ssm", "hybrid"):
+        for i, blk in enumerate(params["blocks"]):
             h = h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
                                         impl=impl)
+            if _shared_attn_index(cfg, i) is not None:
+                shared = params["shared_attn"]
+                h = h + attn_mod.attn_forward(shared["attn"],
+                                              rms_norm(h, shared["ln"], cfg.norm_eps), cfg,
+                                              impl=impl)
         return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
     for blk in params["blocks"]:
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
@@ -184,11 +222,16 @@ def _kv_smax(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     _check_family(cfg)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if cfg.family == "ssm":
-        st = ssm_mod.init_ssm_state(cfg, batch, _dtype(cfg), device)
-        return {"lengths": lengths,
-                "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if cfg.family in ("ssm", "hybrid"):
+        st = ssm_mod.init_ssm_state(cfg, batch, _dtype(cfg), device)
+        cache = {"lengths": lengths,
+                 "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
+        if cfg.family == "hybrid":   # max_len rows, as in the JAX package, window or not
+            g = hybrid_split(cfg)[0]
+            cache["k"], cache["v"] = (torch.zeros((g, batch, max_len, KV, hd), dtype=_dtype(cfg),
+                                                  device=device) for _ in range(2))
+        return cache
     shape = (cfg.n_layers, batch, _kv_smax(cfg, max_len), KV, hd)
 
     def leaf():
@@ -214,15 +257,24 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
-    if cfg.family == "ssm":
-        states = []
-        for blk in params["blocks"]:
+    if cfg.family in ("ssm", "hybrid"):
+        states, kv = [], []
+        for i, blk in enumerate(params["blocks"]):
             x = rms_norm(h, blk["ln"], cfg.norm_eps)
             o, st = ssm_mod.ssm_forward(blk["ssm"], x, cfg, impl=impl, return_state=True)
             h = h + o
             states.append(st)
+            if _shared_attn_index(cfg, i) is not None:
+                shared = params["shared_attn"]
+                x = rms_norm(h, shared["ln"], cfg.norm_eps)
+                # a cache of max_len rows, as the JAX package's hybrid prefill has
+                o, kc, vc = attn_mod.attn_prefill(shared["attn"], x, cfg, max_len, impl=impl)
+                h = h + o
+                kv.append((kc, vc))
         cache = {"lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
                  "ssm_state": tuple(torch.stack(leaf) for leaf in zip(*states))}
+        if cfg.family == "hybrid":
+            cache["k"], cache["v"] = (torch.stack(t) for t in zip(*kv, strict=True))
         return lm_logits(params, cfg, h[:, -1]), cache
     cache = init_cache(cfg, b, max_len, device=h.device)
     cache["lengths"].fill_(s)
@@ -250,13 +302,14 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
     updated in place: K/V rows at each length, every layer's conv and SSM
     states. With the bool mask ``active`` (B,), inactive sequences keep
     their rows, their states and their lengths. With ``mesh_info`` and
-    ``cfg.sharded_decode_attn``, attention runs sequence-sharded."""
+    ``cfg.sharded_decode_attn``, attention (a hybrid's shared block too)
+    runs sequence-sharded."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
     step = 1 if active is None else active.to(torch.int32)
     h = params["embed"][tokens][:, None, :]             # (B,1,D)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         states = cache["ssm_state"]
         for i, blk in enumerate(params["blocks"]):
             x = rms_norm(h, blk["ln"], cfg.norm_eps)
@@ -267,8 +320,13 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
                     keep = active.view(-1, *([1] * (st.dim() - 1)))
                     st = torch.where(keep, st, a[i])
                 a[i].copy_(st)
-        return lm_logits(params, cfg, h[:, 0]), {"lengths": lengths + step,
-                                                  "ssm_state": states}
+            gi = _shared_attn_index(cfg, i)
+            if gi is not None:
+                shared = params["shared_attn"]
+                h = h + attn_mod.attn_decode_dispatch(
+                    shared["attn"], rms_norm(h, shared["ln"], cfg.norm_eps), cache["k"][gi],
+                    cache["v"][gi], lengths, cfg, mesh_info, impl=impl, active=active)
+        return lm_logits(params, cfg, h[:, 0]), dict(cache, lengths=lengths + step)
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
         h = h + attn_mod.attn_decode_dispatch(

@@ -24,9 +24,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SMAX = 160
 LENGTHS = [1, 31, 32, 33, 63, 64, 65, SMAX]   # on and around the split boundaries
 SHAPES = [
-    # (H, KV, D): GQA groups 4 and 7
+    # (H, KV, D): GQA groups 4 and 7, then group 1 (MHA, as zamba2-1.2b's
+    # shared attention) at head_dims 64 and 32
     (8, 2, 32),
     (14, 2, 32),
+    (4, 4, 64),
+    (4, 4, 32),
 ]
 
 

@@ -26,6 +26,7 @@ ATTN_SHAPES = [
     (2, 200, 8, 2, 32),
     (1, 64, 6, 3, 128),
     (1, 19, 14, 2, 32),      # grp = 7, as qwen2-7b's 28 query heads over 4 kv heads
+    (1, 19, 32, 32, 64),     # zamba2-1.2b's shared attention (grp = 1), speculative prefill
 ]
 DECODE_SHAPES = [
     # (B, H, KV, D, Smax)
@@ -33,6 +34,7 @@ DECODE_SHAPES = [
     (3, 4, 4, 32, 100),
     (1, 6, 2, 128, 513),
     (4, 14, 2, 32, 192),     # grp = 7
+    (4, 32, 32, 64, 192),    # zamba2-1.2b's serving step (grp = 1)
 ]
 WINDOWS = [(True, None), (True, 48), (False, None)]
 

@@ -6,8 +6,10 @@ run where only PyTorch is installed:
   PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 The attention grid is tests/test_kernels.py's batch, sequence, GQA-group
-and window cases at head_dim 128 (the only head_dim the attention kernels
-are built for), plus the qwen2-7b shapes of the serving path. Tolerances:
+and window cases at head_dim 128, plus the qwen2-7b shapes of the serving
+path, zamba2-1.2b's shared attention (32 query and 32 kv heads of head_dim
+64) and a shape at head_dim 32, the other two head_dims the attention
+kernels are built for. Tolerances:
 float32 2e-5, bfloat16 2e-2 (the kernel and the plain version sum in
 another order and round bf16 outputs independently). The SSD scan is held
 at mamba2-2.7b's prompt lengths (3 and 19 tokens, 80 heads) and at
@@ -31,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +49,10 @@ ATTN_SHAPES = [
     (1, 3, 28, 4, 128),       # qwen2-7b authoritative prefill
     (1, 19, 28, 4, 128),      # qwen2-7b speculative prefill
     (1, 300, 28, 4, 128),
+    (1, 3, 32, 32, 64),       # zamba2-1.2b's shared attention: authoritative prefill
+    (1, 19, 32, 32, 64),      # ... speculative prefill
+    (1, 300, 32, 32, 64),
+    (2, 200, 8, 2, 32),       # head_dim 32 (the reduced configs)
 ]
 DECODE_SHAPES = [
     # (B, H, KV, D, Smax)
@@ -53,7 +60,11 @@ DECODE_SHAPES = [
     (3, 4, 4, 128, 100),
     (1, 6, 2, 128, 513),
     (4, 28, 4, 128, 192),     # qwen2-7b serving step
+    (4, 32, 32, 64, 192),     # zamba2-1.2b's serving step (grp 1)
+    (2, 8, 2, 64, 513),
+    (3, 8, 4, 32, 100),       # head_dim 32
 ]
+HEAD_DIMS = [32, 64, 128]
 
 
 @pytest.fixture
@@ -105,18 +116,21 @@ def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype, window
 SPLIT_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 192]   # on and around the 64-key splits
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("grp", [1, 2, 7, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 40, 100])
-def test_decode_kernel_at_split_boundaries(cuda_device, grp, dtype, window):
+def test_decode_kernel_at_split_boundaries(cuda_device, d, grp, dtype, window):
     """Smax 192 over 8 sequences and 2 kv heads: 3 splits of 64 keys
     without a window (later splits empty for short rows), 2 under a window
-    of 100, 1 under 40; every GQA group size up to the 16 rows of a tile."""
+    of 100, 1 under 40; every GQA group size up to the 16 rows of a tile,
+    at every head_dim the kernel is built for (the merges map (group row,
+    head dim) pairs onto the block's threads)."""
     b, kv, smax = len(SPLIT_LENGTHS), 2, 192
     assert da.split_plan(smax, window, b, kv)[0] == {None: 3, 100: 2, 40: 1}[window]
     rng = np.random.default_rng(15)
-    q = _randn(rng, (b, kv * grp, 128), dtype, cuda_device)
-    kc, vc = (_randn(rng, (b, smax, kv, 128), dtype, cuda_device) for _ in range(2))
+    q = _randn(rng, (b, kv * grp, d), dtype, cuda_device)
+    kc, vc = (_randn(rng, (b, smax, kv, d), dtype, cuda_device) for _ in range(2))
     lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=cuda_device)
     want = ops.decode_attention(q, kc, vc, lens, window=window, impl="plain")
     got = ops.decode_attention(q, kc, vc, lens, window=window, impl="kernel")
@@ -127,20 +141,22 @@ def test_decode_kernel_at_split_boundaries(cuda_device, grp, dtype, window):
 FLASH_SQ = [1, 3, 19, 63, 64, 65, 300]
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("sq", FLASH_SQ)
 @pytest.mark.parametrize("extra_keys", [0, 37])
 @pytest.mark.parametrize("window", [None, 1, 48, 400])
 @pytest.mark.parametrize("grp", [1, 7])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_tiles_and_right_alignment(cuda_device, sq, extra_keys, window, grp,
+def test_flash_kernel_tiles_and_right_alignment(cuda_device, d, sq, extra_keys, window, grp,
                                                dtype):
     """Query counts on and around the 64-row tiles, Sq < Sk (queries
     right-aligned to the last keys), windows of one key, of part of the
-    keys and of all of them, GQA groups 1 and 7."""
+    keys and of all of them, GQA groups 1 and 7, every head_dim the kernel
+    is built for."""
     sk, kv = sq + extra_keys, 2
     rng = np.random.default_rng(16)
-    q = _randn(rng, (1, sq, kv * grp, 128), dtype, cuda_device)
-    k, v = (_randn(rng, (1, sk, kv, 128), dtype, cuda_device) for _ in range(2))
+    q = _randn(rng, (1, sq, kv * grp, d), dtype, cuda_device)
+    k, v = (_randn(rng, (1, sk, kv, d), dtype, cuda_device) for _ in range(2))
     want = ops.flash_attention(q, k, v, causal=True, window=window, impl="plain")
     got = ops.flash_attention(q, k, v, causal=True, window=window, impl="kernel")
     torch.cuda.synchronize()
@@ -148,26 +164,27 @@ def test_flash_kernel_tiles_and_right_alignment(cuda_device, sq, extra_keys, win
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_are_deterministic(cuda_device, dtype):
+def test_kernels_are_deterministic(cuda_device, d, dtype):
     """Two calls on the same inputs are bitwise equal: the decode kernel
     merges its splits in a fixed order inside the launch, whichever block
     arrives last."""
     rng = np.random.default_rng(17)
-    q = _randn(rng, (4, 28, 128), dtype, cuda_device)
-    kc, vc = (_randn(rng, (4, 4096, 4, 128), dtype, cuda_device) for _ in range(2))
+    q = _randn(rng, (4, 28, d), dtype, cuda_device)
+    kc, vc = (_randn(rng, (4, 4096, 4, d), dtype, cuda_device) for _ in range(2))
     lens = torch.tensor([4096, 1, 2500, 1024], dtype=torch.int32, device=cuda_device)
     for window in (None, 1024):
         outs = [ops.decode_attention(q, kc, vc, lens, window=window, impl="kernel")
                 for _ in range(2)]
         assert torch.equal(*outs)
-    qf = q.float() * 128 ** -0.5
+    qf = q.float() * d ** -0.5
     parts = [ops.decode_attention_partials(qf, kc[:, 1024:2048], vc[:, 1024:2048],
                                            torch.clamp(lens - 1024, 0, 1024), scale=1.0,
                                            impl="kernel") for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*parts, strict=True))
-    qs = _randn(rng, (1, 300, 28, 128), dtype, cuda_device)
-    ks, vs = (_randn(rng, (1, 300, 4, 128), dtype, cuda_device) for _ in range(2))
+    qs = _randn(rng, (1, 300, 28, d), dtype, cuda_device)
+    ks, vs = (_randn(rng, (1, 300, 4, d), dtype, cuda_device) for _ in range(2))
     outs = [ops.flash_attention(qs, ks, vs, window=48, impl="kernel") for _ in range(2)]
     assert torch.equal(*outs)
 
@@ -179,6 +196,20 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 8, 4, 128), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q, q, q, impl="kernel")
+
+
+def test_c_entries_refuse_a_head_dim_they_are_not_built_for(cuda_device):
+    """Each C entry dispatches on the head_dim with a switch whose default
+    returns cudaErrorInvalidValue (1) before it launches anything, whatever
+    the Python wrapper checks first; here head_dim 48."""
+    buf = torch.zeros(4096, dtype=torch.float32, device=cuda_device)
+    p = buf.data_ptr()
+    st = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert fa._kernel()(p, p, p, p, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1, st) == 1
+    assert da._kernel()(p, p, p, p, p, p, p, 1, 64, 4, 2, 48, -1, 1.0, 1, 1, 64, st) == 1
+    assert da._partials_kernel()(p, p, p, p, p, p, p, p, p, 1, 64, 64 * 2 * 48, 4, 2, 48, -1,
+                                 1.0, 1, 1, 64, st) == 1
+    assert sorted(fa.HEAD_DIMS) == sorted(da.HEAD_DIMS) == HEAD_DIMS
 
 
 def test_decode_kernel_ignores_lengths_past_the_cache(cuda_device):
@@ -202,18 +233,19 @@ PARTIALS_CASES = [
 ]
 
 
-def _partials_inputs(rng, smax, lengths, dtype, device):
-    q = _randn(rng, (4, 28, 128), torch.float32, device) * 128 ** -0.5
-    kc, vc = (_randn(rng, (4, smax, 4, 128), dtype, device) for _ in range(2))
+def _partials_inputs(rng, smax, lengths, dtype, device, d=128):
+    q = _randn(rng, (4, 28, d), torch.float32, device) * d ** -0.5
+    kc, vc = (_randn(rng, (4, smax, 4, d), dtype, device) for _ in range(2))
     return q, kc, vc, torch.tensor(lengths, dtype=torch.int32, device=device)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("smax,lengths,window", PARTIALS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_partials_kernel_matches_plain_on_views(cuda_device, smax, lengths, window,
+def test_decode_partials_kernel_matches_plain_on_views(cuda_device, d, smax, lengths, window,
                                                        dtype):
     q, kc, vc, lens = _partials_inputs(np.random.default_rng(13), smax, lengths, dtype,
-                                       cuda_device)
+                                       cuda_device, d)
     chunk = smax // 4
     parts = []
     for lo in range(0, smax, chunk):
@@ -239,7 +271,7 @@ def test_decode_partials_kernel_matches_plain_on_views(cuda_device, smax, length
         acc, _, denom = da.combine_partials(*(torch.stack(t) for t in zip(*parts, strict=True)))
         out = acc / torch.clamp(denom[..., None], min=1e-30)
         want = ops.decode_attention(q, kc, vc, lens, scale=1.0, impl="plain")
-        _close(out.reshape(4, 28, 128), want, dtype)
+        _close(out.reshape(4, 28, d), want, dtype)
 
 
 def test_decode_partials_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -255,8 +287,8 @@ def test_decode_partials_kernel_rejects_what_it_does_not_take(cuda_device):
         ops.decode_attention_partials(q, wide, wide, lens, impl="kernel")
     with pytest.raises(ValueError, match="is torch.float32"):
         ops.decode_attention_partials(q, kc, vc.float(), lens, impl="kernel")
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.decode_attention_partials(q[..., :64].contiguous(), kc[..., :64], vc[..., :64],
+    with pytest.raises(ValueError, match="head_dim"):             # head_dim 48
+        ops.decode_attention_partials(q[..., :48].contiguous(), kc[..., :48], vc[..., :48],
                                       lens, impl="kernel")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ops.decode_attention_partials(q.cpu(), kc.cpu(), vc.cpu(), lens.cpu(), impl="kernel")

@@ -148,7 +148,7 @@ def test_init_params_shapes_and_vocab_mask():
 
 @pytest.mark.parametrize("arch,kw", [
     ("mixtral-8x7b", {}),                       # MoE family
-    ("zamba2-1.2b", {}),                        # hybrid family (Mamba2 + shared attention)
+    ("zamba2-1.2b", {"kv_cache_dtype": "int8"}),  # hybrid family with an int8 KV cache
     ("qwen2-7b", {"head_pad_multiple": 8}),     # head padding
 ])
 def test_unported_variants_raise(arch, kw):
