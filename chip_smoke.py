@@ -13,9 +13,11 @@ Phases, one line of output each (or more):
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
      serving paths' shapes and at long shapes (for the SSD scan also a chain
-     of 32 chunks over 4 sequences, and zamba2-1.2b's prompts at 64 heads
-     and N = 64; for attention also zamba2-1.2b's shared block, 32 heads of
-     head_dim 64, and the reduced configs' head_dim 32),
+     of 32 chunks over 4 sequences, zamba2-1.2b's prompts at 64 heads
+     and N = 64, and the reduced configs' shape, P = 32, N = 16, chunk 32;
+     for attention also zamba2-1.2b's shared block, 32 heads of head_dim
+     64, the reduced configs' head_dim 32, qwen3-moe-30b-a3b's 32 heads over
+     4 and musicgen-medium's 24 over 24 of head_dim 64),
      every kernel also against a second
      call of itself (bitwise), with its time, the plain
      version's time, the time of one library call computing the same
@@ -34,6 +36,10 @@ Phases, one line of output each (or more):
      every prefill); then zamba2-1.2b (38 Mamba2 layers and 6 applications
      of one shared attention block of head_dim 64: the SSD scan in every
      layer of a prefill, flash and decode attention in every application);
+     then qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 61 GB: the MoE
+     path; with the share of routed slots that drop per decode step
+     and the peak device memory); then musicgen-medium (48 layers, head_dim
+     64);
   4. after each model's run, a batched engine slot against a standalone
      prefill + decode at full width, teacher-forced, and the kernel path
      against the oracle path; for the sharded runs, the sharded engine's
@@ -45,8 +51,12 @@ Phases, one line of output each (or more):
      the full forward under the window mask on log-softmax (bound: 1.5
      times a full cache's decode against its own forward; the rows laid out
      unrotated, as the JAX package's prefill leaves them, must exceed it);
-     after zamba2-1.2b, the serving CLI
-     (``launch/serve.py``'s ``main``) on reduced qwen2-7b (head_dim 32);
+     qwen3-moe-30b-a3b's check runs at capacity factor E / k, where no slot
+     drops (the batched step routes 4 tokens, the standalone decode 1);
+     after musicgen-medium, a prefill from frontend embeddings against the
+     oracle path; then the serving CLI (``launch/serve.py``'s ``main``) on
+     every arch, reduced (the SSD scan must launch for mamba2-2.7b and
+     zamba2-1.2b);
   R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
      none of the kernels (their counts must stay 0): (a) the speculative-
      serving demos of launch/speculative_serving.py with their asserts;
@@ -314,7 +324,7 @@ def partials_case(ops, da, gen, flush, smax, lengths, dtype, window, timed, h=28
     return case
 
 
-def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
+def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed, chunk=128):
     x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
     dt = torch.empty((b, s, h), device="cuda").uniform_(0.001, 0.1, generator=gen)
     A = -torch.empty((h,), device="cuda").uniform_(1.0, 16.0, generator=gen)
@@ -323,29 +333,29 @@ def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed):
     D = torch.randn((h,), generator=gen, device="cuda")
     h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_h0 else None
     args = (x, dt, A, B, C, D)
-    want_y, want_h = ops.ssd_scan(*args, impl="plain", initial_state=h0)
-    got_y, got_h = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    kw = dict(chunk=chunk, initial_state=h0)
+    want_y, want_h = ops.ssd_scan(*args, impl="plain", **kw)
+    got_y, got_h = ops.ssd_scan(*args, impl="kernel", **kw)
     torch.cuda.synchronize()
-    name = f"ssd_scan {[b, s, h, p, g, n]} h0 {with_h0}"
-    again = ops.ssd_scan(*args, impl="kernel", initial_state=h0)
+    name = f"ssd_scan {[b, s, h, p, g, n]} chunk {chunk} h0 {with_h0}"
+    again = ops.ssd_scan(*args, impl="kernel", **kw)
     assert torch.equal(got_y, again[0]) and torch.equal(got_h, again[1]), \
         f"{name}: two calls differ"
-    case = {"shape": [b, s, h, p, g, n], "dtype": str(dtype).split(".")[1], "h0": with_h0,
+    case = {"shape": [b, s, h, p, g, n], "chunk": chunk, "dtype": str(dtype).split(".")[1],
+            "h0": with_h0,
             "max_abs_err": max(_check(f"{name} y", got_y, want_y, dtype, SSD_TOL),
                                _check(f"{name} state", got_h, want_h, dtype, SSD_TOL))}
     if not timed:
         return case
     # operations per chunk and head with q valid rows: C B^T and its product
     # with x (2 q^2 N + 2 q^2 P), the inter-chunk term and the state update (4 q N P)
-    rows = [min(128, s - c0) for c0 in range(0, s, 128)]
+    rows = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
     flops = b * h * sum(2 * q * q * n + 2 * q * q * p + 4 * q * n * p for q in rows)
     n_bytes = _nbytes(*args, got_y, got_h) + (_nbytes(h0) if with_h0 else 0)
     case["bound_ms"], case["bound_by"] = _bound(n_bytes, flops, dtype)
     iters = 20 if s > 512 else 50
-    case["ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="kernel", initial_state=h0),
-                          iters, flush)
-    case["plain_ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="plain", initial_state=h0),
-                                iters, flush)
+    case["ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="kernel", **kw), iters, flush)
+    case["plain_ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="plain", **kw), iters, flush)
     case["library_ms"] = None   # no single PyTorch call computes the SSD scan
     return case
 
@@ -588,6 +598,63 @@ def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
           f"the kernel-vs-oracle maximum {floor:.4f}): {json.dumps(errs)}", flush=True)
     assert max(errs["int8 sharded vs unsharded"]) <= floor, errs
     assert max(errs["bf16 sharded vs unsharded"]) <= floor, errs
+
+
+def record_moe_drops(moe_mod):
+    """Wrap ``moe_mod.moe_forward`` so that each call on one token per row
+    (a layer of a decode step) appends its drop_frac to the list returned;
+    the second value restores the original."""
+    drops, real = [], moe_mod.moe_forward
+
+    def recording(p, x, *args, **kw):
+        y, aux = real(p, x, *args, **kw)
+        if x.shape[1] == 1:
+            drops.append(aux["drop_frac"])
+        return y, aux
+
+    moe_mod.moe_forward = recording
+    return drops, lambda: setattr(moe_mod, "moe_forward", real)
+
+
+def moe_drops(M, moe_mod, params, engine, served):
+    """The share of routed slots that drop per decode step (the mean over
+    the layers): over the engine's steps while it served (``served``, every
+    row routed, inactive ones with their stale tokens too), and over one
+    step of 4 distinct tokens, all slots active. At batch 4 each expert
+    holds one slot."""
+    cfg = engine.cfg
+    per_step = torch.stack(served).view(-1, cfg.n_layers).mean(dim=1).tolist()
+    drops, restore = record_moe_drops(moe_mod)
+    try:
+        M.decode_step(params, cfg, engine.cache, torch.arange(2, 6, device="cuda"),
+                      active=torch.ones(4, dtype=torch.bool, device="cuda"))
+    finally:
+        restore()
+    distinct = torch.stack(drops).mean().item()
+    print(f"phase 3 {cfg.name} drop_frac per decode step at batch {engine.max_batch} (capacity "
+          f"{moe_mod.capacity(engine.max_batch, cfg)} per expert, mean over {cfg.n_layers} "
+          f"layers): over the {len(per_step)} steps served (warm-up included) mean "
+          f"{sum(per_step) / len(per_step):.4f}, min {min(per_step):.4f}, max "
+          f"{max(per_step):.4f}; tokens 2-5, all active: {distinct:.4f}; a 19-token prefill "
+          f"has capacity {moe_mod.capacity(19, cfg)}; per step: "
+          f"{json.dumps([round(d, 4) for d in per_step])}", flush=True)
+    assert all(0.0 <= d < 1.0 for d in per_step + [distinct]), per_step
+
+
+def check_embeds(M, cfg, params, seq=19):
+    """A prefill from frontend embeddings (1, seq, D) through the kernel
+    path against the oracle path (``attn_impl="ref"``), on the last
+    position's logits."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    emb = torch.randn((1, seq, cfg.d_model), generator=gen, device="cuda")
+    lg, _ = M.prefill(params, cfg, {"embeds": emb}, max_len=192)
+    lg_ref, _ = M.prefill(params, dataclasses.replace(cfg, attn_impl="ref"), {"embeds": emb},
+                          max_len=192)
+    pair = torch.stack([lg[0, :cfg.vocab_size], lg_ref[0, :cfg.vocab_size]])
+    corr = float(torch.corrcoef(pair)[0, 1])
+    print(f"phase 4 {cfg.name} prefill from embeds {[1, seq, cfg.d_model]}: kernel-vs-oracle "
+          f"logit correlation {corr:.6f}", flush=True)
+    assert torch.isfinite(lg[:, :cfg.vocab_size]).all() and corr >= 0.99, corr
 
 
 WALL_CLOCK_KEYS = {"sched_us_per_admit", "sched_us_per_tick"}  # the scheduler's own wall clock
@@ -874,6 +941,7 @@ def main():
     from repro_torch.launch.mesh import make_local_mesh, mesh_axes, mesh_counts
     from repro_torch.launch.serve import serve_agent_loop
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -950,6 +1018,25 @@ def main():
         for s, timed_ssd in ((3, False), (19, timed)):
             cases["ssd_scan"].append(
                 ssd_case(ops, gen, flush, 1, s, 64, 64, 1, 64, dtype, False, timed_ssd))
+    # qwen3-moe-30b-a3b's attention (32 heads over 4 of head_dim 128) and
+    # musicgen-medium's (24 over 24 of head_dim 64) at their prompts and
+    # serving step; the reduced Mamba2 and hybrid configs' SSD shape (P 32,
+    # N 16, chunk 32): a 19-token prompt, a ragged third chunk with an
+    # initial state, a chain of 128 chunks over 4 sequences. A generator of
+    # their own, so that the cases above keep their inputs.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for s, h, kv, d in ((3, 32, 4, 128), (19, 32, 4, 128), (19, 24, 24, 64)):
+            cases["flash_attention"].append(
+                flash_case(ops, gen, flush, 1, s, h, kv, d, dtype, None, timed))
+        for h, kv, d in ((32, 4, 128), (24, 24, 64)):
+            cases["decode_attention"].append(
+                decode_case(ops, gen, flush, 4, h, kv, d, 192, dtype, None, timed))
+        for b, s, h, with_h0, timed_ssd in ((1, 19, 4, False, timed), (1, 70, 8, True, False),
+                                            (4, 4096, 8, True, timed)):
+            cases["ssd_scan"].append(ssd_case(ops, gen, flush, b, s, h, 32, 1, 16, dtype,
+                                              with_h0, timed_ssd, chunk=32))
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)
@@ -1049,16 +1136,68 @@ def main():
     del engine, params
     torch.cuda.empty_cache()
 
-    # the serving CLI on its default device: reduced qwen2-7b, head_dim 32
+    # the MoE family at full width (48 layers, 128 experts
+    # top-8, 61 GB in bf16), alone on the card
+    cfg = get_config("qwen3-moe-30b-a3b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(M, cfg)
+    served, restore = record_moe_drops(moe_mod)
+    try:
+        engine, counts, prefills, engine_steps = serve_model(
+            M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
+    finally:
+        restore()
+    assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
+    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
+    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
+    launches["flash_attention"] = counts["flash_attention"]
+    launches["decode_attention"] = counts["decode_attention"]
+    moe_drops(M, moe_mod, params, engine, served)
+    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
+    print(f"phase 3 {cfg.name} peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"GB", flush=True)
+    del engine
+    # the batched slot routes 4 tokens, the standalone decode 1: only a
+    # capacity that drops nothing (factor E / k) lets them agree
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    print(f"phase 4 {cfg.name} served at capacity factor {cfg.moe.capacity_factor}; checked "
+          f"at {free.moe.capacity_factor} (capacity = tokens, no drops)", flush=True)
+    engine = ServingEngine(free, params, max_batch=4, max_len=192, device="cuda")
+    check_model(M, free, params, engine, f"{cfg.name} capacity factor {free.moe.capacity_factor}")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # the audio backbone (48 layers, 24 heads of head_dim 64), served from
+    # token ids, and one prefill from frontend embeddings
+    cfg = get_config("musicgen-medium")
+    params = init_model(M, cfg)
+    engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
+    assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
+    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
+    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
+    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
+    check_model(M, cfg, params, engine, cfg.name)
+    check_embeds(M, cfg, params)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # the serving CLI on its default device, every arch reduced
+    from repro_torch.configs import ARCHS
     from repro_torch.launch import serve
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
-    t0 = time.time()
-    serve.main(["--arch", "qwen2-7b", "--episodes", "1"])
-    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-    print(f"phase 4 serve CLI --arch qwen2-7b (reduced, cuda): {time.time() - t0:.1f} s, "
-          f"launches {counts}", flush=True)
-    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
+    for arch, arch_cfg in ARCHS.items():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.time()
+        serve.main(["--arch", arch, "--episodes", "1"])
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        print(f"phase 4 serve CLI --arch {arch} (reduced, cuda): {time.time() - t0:.1f} s, "
+              f"launches {counts}", flush=True)
+        if arch_cfg.family in ("ssm", "hybrid"):
+            assert counts["ssd_scan"] > 0, counts
+        if arch_cfg.family != "ssm":
+            assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
 
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
     for mod, attr in counters.values():
@@ -1076,8 +1215,12 @@ def main():
     }
     source = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in replaces}
     source["decode_attention_partials"] = source["decode_attention"]
-    path_case = {"flash_attention": cases["flash_attention"][1],     # S=19 speculative prefill
-                 "decode_attention": cases["decode_attention"][0],  # (4,192,4,128) serving step
+    def case_at(name, shape):
+        return next(c for c in cases[name] if c["shape"] == shape and c["dtype"] == "bfloat16")
+
+    path_case = {  # qwen3-moe-30b-a3b's 19-token speculative prefill and its serving step
+                 "flash_attention": case_at("flash_attention", [1, 19, 32, 4, 128]),
+                 "decode_attention": case_at("decode_attention", [4, 32, 4, 128, 192]),
                  "decode_attention_partials": cases["decode_attention_partials"][0],  # 4 x 48
                  "ssd_scan": cases["ssd_scan"][1]}                  # S=19 speculative prefill
     kernels = []

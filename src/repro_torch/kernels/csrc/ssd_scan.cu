@@ -4,13 +4,18 @@
 //   (pl.pallas_call at line 122, kernel body _kernel at line 31).
 //
 // Computes: for each (batch, head) the SSD recurrence over the sequence in
-//   chunks of Q = 128 positions. Per chunk, with cs the inclusive cumsum of
+//   chunks of Q positions. Per chunk, with cs the inclusive cumsum of
 //   dt * A over the chunk:
 //     y_i  = exp(cs_i) * C_i . S  +  sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
 //            + D * x_i
 //     S   <- exp(cs_last) * S  +  sum_j exp(cs_last - cs_j) dt_j B_j (outer) x_j
 //   x and y (B,S,H,P) in x's type, dt (B,S,H), B/C (B,S,G,N) at group
 //   h / (H/G), state (B,H,P,N) f32. Everything is summed in f32.
+//
+// Built for (head_dim P, d_state N, chunk Q) = (64, 128, 128) (mamba2-2.7b),
+//   (64, 64, 128) (zamba2-1.2b) and (32, 16, 32) (both configs reduced), in
+//   bf16 and f32; Q, P and N are template parameters, any other shape is
+//   refused at ssd_scan_fwd.
 //
 // Bound on the H100: at the serving path's prompt lengths (3 and 19
 //   tokens, one chunk) bytes, and mostly the 2.6 MB f32 final state of
@@ -59,18 +64,24 @@
 //   only where j <= i (it overflows above the diagonal). The f32
 //   instantiation (tests and chip_smoke only) runs the same structure in
 //   scalar FMA on the same fragment layout: TF32 would miss its 3e-4.
+//   The reduced shape runs the same plan with less of it: P = 32 is one
+//   column half (a block per chunk, head and batch), Q = 32 is two row
+//   tiles (y warps 0 and 1 take one each, 2 and 3 idle), and at N = 16 the
+//   state is 2 x 2 tiles of 16 x 8, one per state warp, where from N = 32
+//   each state warp takes every row and a quarter of N.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int Q = 128;       // chunk length
-constexpr int P = 64;        // head_dim
+// The chunk length Q, head_dim P and d_state N are template parameters
+// (the built shapes are listed at ssd_scan_fwd).
 constexpr int PB = 32;       // head_dim columns per block
 constexpr int NYW = 4;       // warps computing y; as many compute the state
 constexpr int NT = 2 * NYW * 32;
-constexpr int SMALL_BYTES = 3 * Q * 4 + 16;  // cumsum, dt and w (Q each), the scan's warp totals
+// cumsum, dt and w (Q each), the scan's warp totals
+template <int Q> constexpr int small_bytes() { return 3 * Q * 4 + 16; }
 
 // Barrier ids besides 0 (__syncthreads): the state warps among themselves,
 // and the state operand S handed from the state warps to the y warps.
@@ -82,14 +93,14 @@ constexpr int BAR_S_READY = 2;
 // [R][LDP] and, where the y warps need the state entering the chunk, S as
 // [PB][LDN] (bf16 hi and lo, or one f32 array). Rows are padded by 16
 // bytes, so the 8 rows an ldmatrix phase reads fall into distinct banks.
-template <typename T, int N>
+template <typename T, int Q, int N>
 struct Layout {
   static constexpr int LDN = N + 16 / (int)sizeof(T);
   static constexpr int LDP = PB + 16 / (int)sizeof(T);
   static constexpr int S_ARRAYS = sizeof(T) == 2 ? 2 : 1;
   int c, b, x, s, bytes;
   __host__ __device__ Layout(int R, bool inter) {
-    c = SMALL_BYTES;
+    c = small_bytes<Q>();
     b = c + R * LDN * (int)sizeof(T);
     x = b + R * LDN * (int)sizeof(T);
     s = x + R * LDP * (int)sizeof(T);
@@ -264,17 +275,18 @@ __device__ __forceinline__ void mm_px(float (&acc)[PB / 8][4], const float (&s)[
   }
 }
 
-// acc (PB rows p x 8 NTW columns n) += x^T (w . B) over 16 rows j: x at xs
-// ([j][LDP]), B at bs ([j][LDN], from this warp's first column), w at w.
-// bf16: x^T by ldmatrix.trans, w . B in f32 as hi + lo B fragments.
-template <int NTW, int LDP, int LDN>
-__device__ __forceinline__ void mm_xtwb(float (&acc)[PB / 16][NTW][4], const __nv_bfloat16* xs,
+// acc (16 MTW rows p x 8 NTW columns n) += x^T (w . B) over 16 rows j: x at
+// xs ([j][LDP], from this warp's first column p), B at bs ([j][LDN], from
+// this warp's first column n), w at w. bf16: x^T by ldmatrix.trans, w . B
+// in f32 as hi + lo B fragments.
+template <int MTW, int NTW, int LDP, int LDN>
+__device__ __forceinline__ void mm_xtwb(float (&acc)[MTW][NTW][4], const __nv_bfloat16* xs,
                                         const __nv_bfloat16* bs, const float* w, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  uint32_t af[PB / 16][4];
+  uint32_t af[MTW][4];
   const __nv_bfloat16* abase = xs + ((lane & 7) + ((lane >> 4) & 1) * 8) * LDP + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int mt = 0; mt < PB / 16; ++mt) ldmatrix_x4_trans(af[mt], abase + mt * 16);
+  for (int mt = 0; mt < MTW; ++mt) ldmatrix_x4_trans(af[mt], abase + mt * 16);
   const float w0 = w[2 * t], w1 = w[2 * t + 1], w8 = w[2 * t + 8], w9 = w[2 * t + 9];
 #pragma unroll
   for (int nt = 0; nt < NTW; ++nt) {
@@ -287,22 +299,22 @@ __device__ __forceinline__ void mm_xtwb(float (&acc)[PB / 16][NTW][4], const __n
     const uint32_t l0 = pack_bf16(v0 - bf16_round(v0), v1 - bf16_round(v1));
     const uint32_t l1 = pack_bf16(v8 - bf16_round(v8), v9 - bf16_round(v9));
 #pragma unroll
-    for (int mt = 0; mt < PB / 16; ++mt) {
+    for (int mt = 0; mt < MTW; ++mt) {
       mma_bf16(acc[mt][nt], af[mt], b0, b1);
       mma_bf16(acc[mt][nt], af[mt], l0, l1);
     }
   }
 }
-template <int NTW, int LDP, int LDN>
-__device__ __forceinline__ void mm_xtwb(float (&acc)[PB / 16][NTW][4], const float* xs,
+template <int MTW, int NTW, int LDP, int LDN>
+__device__ __forceinline__ void mm_xtwb(float (&acc)[MTW][NTW][4], const float* xs,
                                         const float* bs, const float* w, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 2
   for (int j = 0; j < 16; ++j) {
     const float wj = w[j];
-    float xv[PB / 16][2];
+    float xv[MTW][2];
 #pragma unroll
-    for (int mt = 0; mt < PB / 16; ++mt) {
+    for (int mt = 0; mt < MTW; ++mt) {
       xv[mt][0] = xs[j * LDP + mt * 16 + g];
       xv[mt][1] = xs[j * LDP + mt * 16 + g + 8];
     }
@@ -311,7 +323,7 @@ __device__ __forceinline__ void mm_xtwb(float (&acc)[PB / 16][NTW][4], const flo
       const float2 bv = *reinterpret_cast<const float2*>(bs + j * LDN + nt * 8 + 2 * t);
       const float v0 = wj * bv.x, v1 = wj * bv.y;
 #pragma unroll
-      for (int mt = 0; mt < PB / 16; ++mt) {
+      for (int mt = 0; mt < MTW; ++mt) {
         acc[mt][nt][0] += xv[mt][0] * v0;
         acc[mt][nt][1] += xv[mt][0] * v1;
         acc[mt][nt][2] += xv[mt][1] * v0;
@@ -336,13 +348,14 @@ __device__ __forceinline__ void put_state(float* s, int lds, int p, int n, float
 // sync: [0] the ticket counter, then one flag per (batch, head, column
 // half): the number of chunks of it published in this launch. All zero
 // between launches.
-template <typename T, int N>
+template <typename T, int Q, int P, int N>
 __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dv,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hout,
     int* __restrict__ sync, int Bsz, int S, int H, int G, int R) {
-  using L = Layout<T, N>;
+  static_assert(Q % 32 == 0 && Q <= 2 * NYW * 16 && P % PB == 0 && N % 16 == 0 && N <= 128);
+  using L = Layout<T, Q, N>;
   constexpr int LDN = L::LDN, LDP = L::LDP;
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
@@ -430,7 +443,8 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
   __syncthreads();
 
   if (warp < NYW) {
-    // ---- y: row tiles warp and 7 - warp of the chunk ----
+    // ---- y: row tiles warp and 7 - warp of the chunk (a tile from Q / 16
+    // on holds no row below qn: at Q = 32 warps 0 and 1 take a tile each) ----
     float acc[2][PB / 8][4];
 #pragma unroll
     for (int k = 0; k < 2; ++k)
@@ -438,7 +452,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
       for (int nt = 0; nt < PB / 8; ++nt) acc[k][nt][0] = acc[k][nt][1] = acc[k][nt][2] = acc[k][nt][3] = 0.f;
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int i0 = (k == 0 ? warp : 7 - warp) * 16;
+      const int i0 = (k == 0 ? warp : 2 * NYW - 1 - warp) * 16;
       if (i0 >= qn) continue;
       // scores (C_i . B_j) exp(cs_i - cs_j) dt_j for j <= i, else 0, of the
       // 16 columns at j0, then their product with x
@@ -470,7 +484,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
       bar_sync(BAR_S_READY, NT);
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        const int i0 = (k == 0 ? warp : 7 - warp) * 16;
+        const int i0 = (k == 0 ? warp : 2 * NYW - 1 - warp) * 16;
         if (i0 >= qn) continue;
         float tmp[PB / 8][4];
 #pragma unroll
@@ -491,7 +505,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
     const float dcoef = Dv[h];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int i0 = (k == 0 ? warp : 7 - warp) * 16;
+      const int i0 = (k == 0 ? warp : 2 * NYW - 1 - warp) * 16;
       if (i0 >= qn) continue;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -509,16 +523,22 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
     return;
   }
 
-  // ---- the state: columns [n0, n0 + N / 4) of the local end state ----
-  constexpr int NTW = N / 32;
-  const int ws = warp - NYW, n0 = ws * (N / 4);
-  float acc[PB / 16][NTW][4];
+  // ---- the state: rows [m0, m0 + 16 MTW) and columns [n0, n0 + 8 NTW) of
+  // the local end state. From N = 32 each warp takes every row and a
+  // quarter of N; at N = 16 the block's (PB / 16) x (N / 8) = 2 x 2 tiles
+  // of 16 x 8 are one per warp ----
+  constexpr bool WIDE = N >= 32;
+  constexpr int MTW = WIDE ? PB / 16 : 1, NTW = WIDE ? N / 32 : 1;
+  static_assert(NYW * MTW * NTW == (PB / 16) * (N / 8), "the state warps cover the state");
+  const int ws = warp - NYW;
+  const int n0 = WIDE ? ws * (N / 4) : ws % (N / 8) * 8, m0 = WIDE ? 0 : ws / (N / 8) * 16;
+  float acc[MTW][NTW][4];
 #pragma unroll
-  for (int mt = 0; mt < PB / 16; ++mt)
+  for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NTW; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
   for (int j0 = 0; j0 < qn; j0 += 16)
-    mm_xtwb<NTW, LDP, LDN>(acc, xs_ + j0 * LDP, bs_ + j0 * LDN + n0, wv + j0, lane);
+    mm_xtwb<MTW, NTW, LDP, LDN>(acc, xs_ + j0 * LDP + m0, bs_ + j0 * LDN + n0, wv + j0, lane);
 
   // ---- the chain: S_c = exp(cs_last) S_{c-1} + s_c ----
   if (c > 0) {
@@ -528,14 +548,14 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
     bar_sync(BAR_STATE, NYW * 32);
   }
   const float* src = c > 0 ? hb : h0 == nullptr ? nullptr : h0 + st_off;
-  float prev[PB / 16][NTW][4];
+  float prev[MTW][NTW][4];
 #pragma unroll
-  for (int mt = 0; mt < PB / 16; ++mt)
+  for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int p = mt * 16 + g8 + 8 * hf, n = n0 + nt * 8 + 2 * t4;
+        const int p = m0 + mt * 16 + g8 + 8 * hf, n = n0 + nt * 8 + 2 * t4;
         float2 v = make_float2(0.f, 0.f);
         if (c > 0) v = __ldcg(reinterpret_cast<const float2*>(src + p * N + n));
         else if (src != nullptr) v = *reinterpret_cast<const float2*>(src + p * N + n);
@@ -544,12 +564,12 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
       }
   const float decay = expf(cs_last);
 #pragma unroll
-  for (int mt = 0; mt < PB / 16; ++mt)
+  for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int p = mt * 16 + g8 + 8 * hf, n = n0 + nt * 8 + 2 * t4;
+        const int p = m0 + mt * 16 + g8 + 8 * hf, n = n0 + nt * 8 + 2 * t4;
         store2(hb + p * N + n, decay * prev[mt][nt][2 * hf] + acc[mt][nt][2 * hf],
                decay * prev[mt][nt][2 * hf + 1] + acc[mt][nt][2 * hf + 1]);
       }
@@ -564,32 +584,32 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
   }
   if (inter) {
 #pragma unroll
-    for (int mt = 0; mt < PB / 16; ++mt)
+    for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
-          put_state(ss_, LDN, mt * 16 + g8 + 8 * hf, n0 + nt * 8 + 2 * t4,
+          put_state(ss_, LDN, m0 + mt * 16 + g8 + 8 * hf, n0 + nt * 8 + 2 * t4,
                     prev[mt][nt][2 * hf], prev[mt][nt][2 * hf + 1]);
     __threadfence_block();
     bar_arrive(BAR_S_READY, NT);
   }
 }
 
-template <typename T, int N>
+template <typename T, int Q, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* B, const void* C,
            const void* D, const void* h0, void* y, void* hout, void* sync, int Bsz, int S,
            int H, int G, cudaStream_t stream) {
-  auto kernel = ssd_scan_kernel<T, N>;
+  auto kernel = ssd_scan_kernel<T, Q, P, N>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T, N>(Q, true).bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T, Q, N>(Q, true).bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long nc = (S + Q - 1) / Q;
   const long blocks = nc * (P / PB) * H * Bsz;
   if (blocks > 0x7fffffffL || (nc > 1 && sync == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = nc > 1 ? Q : (S + 15) / 16 * 16;  // rows a block computes
-  const Layout<T, N> lay(R, nc > 1 || h0 != nullptr);
+  const Layout<T, Q, N> lay(R, nc > 1 || h0 != nullptr);
   kernel<<<(unsigned)blocks, NT, lay.bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(D),
@@ -598,29 +618,44 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int Q, int P, int N>
+int launch_dtype(int dtype, const void* x, const void* dt, const void* A, const void* B,
+                 const void* C, const void* D, const void* h0, void* y, void* hout, void* sync,
+                 int Bsz, int S, int H, int G, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, sync, Bsz, S, H, G, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, sync, Bsz, S, H, G,
+                                          stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm (B,S,G,N), D (H,) f32,
 // h0 (B,H,P,N) f32 or null, y (B,S,H,P), hout (B,H,P,N) f32; all contiguous,
-// x, Bm and Cm 16-byte aligned. sync: 1 + 2 * B * H int32 zeros, which the
-// launch leaves zero (launches that share it run in one stream's order).
-// P must be 64, N 64 or 128, chunk 128. dtype (of x, Bm, Cm, y): 0 float32,
-// 1 bfloat16. Returns the cudaError_t of the launch.
+// x, Bm and Cm 16-byte aligned. sync: 1 + (P / 32) * B * H int32 zeros,
+// which the launch leaves zero (launches that share it run in one stream's
+// order). Built for (P, N, chunk) = (64, 128, 128) and (64, 64, 128), the
+// full-width Mamba2 and hybrid configs, and (32, 16, 32), the reduced ones.
+// dtype (of x, Bm, Cm, y): 0 float32, 1 bfloat16. Returns the cudaError_t
+// of the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* D, const void* h0, void* y,
                             void* hout, void* sync, int Bsz, int S, int H, int Pdim, int G,
                             int N, int chunk, int dtype, void* stream) {
-  if (Bsz <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || Pdim != P || chunk != Q)
+  if (Bsz <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && N == 128)
-    return launch<float, 128>(x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H, G, st);
-  if (dtype == 0 && N == 64)
-    return launch<float, 64>(x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H, G, st);
-  if (dtype == 1 && N == 128)
-    return launch<__nv_bfloat16, 128>(x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H, G, st);
-  if (dtype == 1 && N == 64)
-    return launch<__nv_bfloat16, 64>(x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H, G, st);
+  if (Pdim == 64 && N == 128 && chunk == 128)
+    return launch_dtype<128, 64, 128>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
+                                      G, st);
+  if (Pdim == 64 && N == 64 && chunk == 128)
+    return launch_dtype<128, 64, 64>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
+                                     G, st);
+  if (Pdim == 32 && N == 16 && chunk == 32)
+    return launch_dtype<32, 32, 16>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
+                                    G, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,7 +12,10 @@ The kernel runs the chunks in parallel, a block per chunk and 32 head_dim
 columns, and passes the state from chunk to chunk in the same launch, in
 the order of the tickets its blocks draw (``ticket_block``);
 ``ssd_scan_chained_plain`` mirrors that algorithm, with the kernel's bf16
-rounding points, for the tests.
+rounding points, for the tests. The kernel is built for the (head_dim P,
+d_state N, chunk) of ``SHAPES``: mamba2-2.7b's (64, 128, 128), zamba2-1.2b's
+(64, 64, 128) and both configs reduced, (32, 16, 32); it raises for any
+other.
 
 Layout: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, B/C (B,S,G,N), D (H,) f32,
 optional initial state (B,H,P,N) f32 -> (y (B,S,H,P) in x's dtype,
@@ -29,20 +32,19 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64          # P: mamba2-2.7b's and zamba2-1.2b's SSM head_dim
-D_STATES = (64, 128)   # N: zamba2-1.2b's and mamba2-2.7b's d_state
-CHUNK = 128            # the configs' chunk length
+# (P, N, chunk) the kernel is built for: mamba2-2.7b, zamba2-1.2b, and both reduced
+SHAPES = ((64, 128, 128), (64, 64, 128), (32, 16, 32))
 COLUMNS = 32           # head_dim columns per block of the kernel (PB in the source)
 
 launches = 0  # kernel launches made by ssd_scan_kernel; callers may reset it
 
 
-def ticket_block(ticket: int, h: int, b: int) -> Tuple[int, int, int, int]:
-    """(chunk, column half, head, batch) of the block that draws ``ticket``:
-    chunk-major, so every block of chunk c - 1 has drawn its ticket (and
-    runs) before any block of chunk c, and a block waits only on running
-    blocks."""
-    halves = HEAD_DIM // COLUMNS
+def ticket_block(ticket: int, h: int, b: int, p: int) -> Tuple[int, int, int, int]:
+    """(chunk, column half, head, batch) of the block that draws ``ticket``
+    at head_dim ``p`` (p / 32 column halves): chunk-major, so every block of
+    chunk c - 1 has drawn its ticket (and runs) before any block of chunk c,
+    and a block waits only on running blocks."""
+    halves = p // COLUMNS
     return ticket // (halves * h * b), ticket % halves, ticket // halves % h, \
         ticket // halves // h % b
 
@@ -148,7 +150,7 @@ def ssd_scan_chained_plain(
             else torch.zeros((b, g, r, p, n), dtype=torch.float32, device=x.device))
     y_inter = torch.zeros_like(y)
     for t in range(nc * (p // COLUMNS) * h * b):
-        c, half, hh, bb = ticket_block(t, h, b)
+        c, half, hh, bb = ticket_block(t, h, b, p)
         gg, rr = divmod(hh, r)
         cols = slice(half * COLUMNS, (half + 1) * COLUMNS)
         prev = slot[bb, gg, rr, cols].clone()             # S_{c-1}, (columns, n)
@@ -180,13 +182,13 @@ def _error_string(err: int) -> str:
 _syncs = {}  # device index -> int32 ticket counter and the chain's flags, zeroed once
 
 
-def _sync_buffer(x, b, h):
+def _sync_buffer(x, b, h, p):
     """The chained scan's ticket counter and its per-(batch, head, column
     half) flags, allocated zeroed at first use (or when a larger batch or
     more heads need more) and left zero by every launch; so launches that
     share a device run in one stream's order."""
     buf = _syncs.get(x.device.index)
-    n = 1 + HEAD_DIM // COLUMNS * b * h
+    n = 1 + p // COLUMNS * b * h
     if buf is None or buf.numel() < n:
         buf = torch.zeros(n, dtype=torch.int32, device=x.device)
         _syncs[x.device.index] = buf
@@ -227,12 +229,13 @@ def _check(x, dt, A, B, C, D, chunk, initial_state):
                          f"B/C {tuple(B.shape)} and D {tuple(D.shape)} do not match")
     if initial_state is not None and initial_state.shape != (b, h, p, n):
         raise ValueError(f"initial_state is {tuple(initial_state.shape)}, want {(b, h, p, n)}")
-    if p != HEAD_DIM:
-        raise ValueError(f"head_dim P={p} not supported; the kernel is built for {HEAD_DIM}")
-    if n not in D_STATES:
-        raise ValueError(f"d_state N={n} not supported; the kernel is built for {D_STATES}")
-    if chunk != CHUNK:
-        raise ValueError(f"chunk {chunk} not supported; the kernel is built for {CHUNK}")
+    built = f"the kernel is built for (P, N, chunk) in {SHAPES}"
+    if p not in {shape[0] for shape in SHAPES}:
+        raise ValueError(f"head_dim P={p} not supported; {built}")
+    if (p, n) not in {shape[:2] for shape in SHAPES}:
+        raise ValueError(f"d_state N={n} not supported at head_dim P={p}; {built}")
+    if (p, n, chunk) not in SHAPES:
+        raise ValueError(f"chunk {chunk} not supported at (P, N) = ({p}, {n}); {built}")
     for name in ("x", "B", "C"):
         if named[name].data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads "
@@ -255,7 +258,7 @@ def ssd_scan_kernel(
     err = _kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
         0 if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
-        final.data_ptr(), _sync_buffer(x, b, h).data_ptr(), b, s, h, p, g, n, chunk,
+        final.data_ptr(), _sync_buffer(x, b, h, p).data_ptr(), b, s, h, p, g, n, chunk,
         DTYPE_CODES[x.dtype],
         torch.cuda.current_stream().cuda_stream,
     )

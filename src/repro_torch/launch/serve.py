@@ -2,14 +2,18 @@
 
 An agent loop whose reasoning steps decode on the ServingEngine while tool
 calls run on the host; B-PASTE speculates future branches into free batch
-slots. Serves the dense family (qwen2-7b, the default), the Mamba2 family
-(mamba2-2.7b) and the hybrid family (zamba2-1.2b: Mamba2 layers and a
-shared attention block) unchanged: the engine copies whichever cache
+slots. Serves every arch of ``configs.ARCHS``, reduced, as the JAX
+package's ``repro.launch.serve`` does: the dense family (qwen2-7b, the
+default, granite-8b, deepseek-7b, mistral-nemo-12b), the MoE family
+(mixtral-8x7b, qwen3-moe-30b-a3b), the vlm and audio backbones
+(internvl2-76b, musicgen-medium; the loop feeds them token ids), the Mamba2
+family (mamba2-2.7b) and the hybrid family (zamba2-1.2b: Mamba2 layers and
+a shared attention block), unchanged: the engine copies whichever cache
 leaves the model's prefill returns. Runs on the GPU unless ``--device cpu``
 is given:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --episodes 3
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --episodes 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --episodes 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
 
 ``main`` mirrors ``repro.launch.serve`` (a reduced model; the loop there

@@ -1,9 +1,14 @@
 """GQA attention block: init + full-sequence/prefill/decode application.
 
 Ported: the plain (bf16 or f32) and the int8 KV cache, with or without a
-sliding window, and the sequence-sharded split-KV decode
-(``attn_decode_sharded``) over a local mesh of shards on one device. Not
-ported yet, and raising NotImplementedError: head padding.
+sliding window, the sequence-sharded split-KV decode
+(``attn_decode_sharded``) over a local mesh of shards on one device, and
+head padding: with ``cfg.head_pad_multiple`` the query and KV head counts
+are rounded up to ``cfg.eff_n_heads`` / ``cfg.eff_n_kv_heads``, the padded
+heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo`` are zero, and the
+kernels see Hp query heads over KVp kv heads. A padded head's output never
+reaches the residual stream, so the padded model computes what the
+unpadded one does.
 
 With a sliding window no longer than the cache (``smax <= window``, see
 :func:`_decode_plan`), the cache is a rolling buffer that holds position p at
@@ -32,33 +37,35 @@ from repro_torch.kernels.decode_attention import combine_partials
 from repro_torch.models.common import apply_rope, dense_init
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the attention variants this package does not have yet."""
-    if cfg.head_pad_multiple:
-        raise NotImplementedError("attention head padding is not ported")
-
-
 def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
                      device) -> dict:
-    check_supported(cfg)
+    """Random weights for the real heads, drawn as without padding; zero
+    columns of ``wq``/``wk``/``wv`` and zero rows of ``wo`` for the padded
+    ones, and biases sized to the padded heads."""
     D, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
+    Hp, KVp = cfg.eff_n_heads, cfg.eff_n_kv_heads
+    F = torch.nn.functional
+
+    def init(shape, pad):  # pad: (columns, rows) of zeros after the drawn block
+        return F.pad(dense_init(generator, shape, dtype=dtype, device=device), pad)
+
     p = {
-        "wq": dense_init(generator, (D, H * hd), dtype=dtype, device=device),
-        "wk": dense_init(generator, (D, KV * hd), dtype=dtype, device=device),
-        "wv": dense_init(generator, (D, KV * hd), dtype=dtype, device=device),
-        "wo": dense_init(generator, (H * hd, D), dtype=dtype, device=device),
+        "wq": init((D, H * hd), (0, (Hp - H) * hd)),
+        "wk": init((D, KV * hd), (0, (KVp - KV) * hd)),
+        "wv": init((D, KV * hd), (0, (KVp - KV) * hd)),
+        "wo": init((H * hd, D), (0, 0, 0, (Hp - H) * hd)),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((KV * hd,), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((KV * hd,), dtype=dtype, device=device)
+        p["bq"] = torch.zeros((Hp * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((KVp * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((KVp * hd,), dtype=dtype, device=device)
     return p
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H, KV, hd = cfg.eff_n_heads, cfg.eff_n_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -88,7 +95,6 @@ def _roped_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str) -> torch.Tensor:
     """Full-sequence causal attention. x (B,S,D)."""
-    check_supported(cfg)
     b, s, _ = x.shape
     q, k, v = _roped_qkv(p, x, cfg)
     o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
@@ -101,7 +107,6 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl:
     int8. Under a sliding window with ``smax < s`` the cache is a rolling
     buffer that keeps the last ``smax`` positions, position p at row
     ``p % smax``."""
-    check_supported(cfg)
     b, s, _ = x.shape
     q, k, v = _roped_qkv(p, x, cfg)
     o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
@@ -161,7 +166,6 @@ def attn_decode(
     buffer), and where the bool mask ``active`` (B,) is given, only active
     sequences' rows change. An int8 cache is dequantized to ``x.dtype`` for
     the attention, as in the JAX package."""
-    check_supported(cfg)
     b = x.shape[0]
     smax = _cache_smax(k_cache)
     quant = cfg.kv_cache_dtype == "int8"
@@ -204,11 +208,10 @@ def attn_decode_sharded(
     (B,Smax,KV,hd) (or int8 (values, scales) pairs) cut on axis 1 into
     ``mesh_info.n_model`` shards.  Returns out (B,1,D); the caches are
     updated in place as in :func:`attn_decode`."""
-    check_supported(cfg)
     b = x.shape[0]
     quant = cfg.kv_cache_dtype == "int8"
     smax = _cache_smax(k_cache)
-    KV, hd, H = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    hd, H = cfg.resolved_head_dim, cfg.eff_n_heads
     nm = mesh_info.n_model
     chunk = smax // nm
 

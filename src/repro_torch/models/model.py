@@ -1,8 +1,10 @@
 """Top-level model: init / full-sequence forward / prefill / decode.
 
-Ported: the dense, the SSM (Mamba2) and the hybrid (zamba2: Mamba2 +
-shared attention) families, with token inputs. The MoE, vlm and audio
-families, and a hybrid with an int8 KV cache, raise NotImplementedError.
+Ported: every family of the JAX package: dense, MoE (the local path), SSM
+(Mamba2), hybrid (zamba2: Mamba2 + shared attention), and the vlm and audio
+backbones with their embedding frontends, with or without head padding.
+Two variants raise NotImplementedError: a hybrid with an int8 KV cache,
+and the MoE family under ``mesh_info`` (the expert-parallel path).
 
 Design notes
 ------------
@@ -16,6 +18,12 @@ Design notes
   ``n_layers % attn_every`` Mamba2 layers (:func:`hybrid_split`). The
   Mamba2 layers are the SSM family's, in the same loop.
 * **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
+* **MoE**: a block's ``moe`` (router f32, experts stacked on a leading E
+  axis) takes the place of ``mlp``; :func:`forward` returns the layers'
+  mean load-balance loss as its aux scalar, as the JAX package does.
+* **frontends** (vlm, audio): a prefill or forward given ``batch["embeds"]``
+  (B,S,D) embeds it through ``params["frontend_proj"]`` (D,D); decode embeds
+  token ids from ``embed`` in every family, as the JAX package does.
 * **caches** keep the JAX package's layouts: ``k``/``v`` ``(L, B, Smax, KV,
   hd)`` for the dense family (with ``kv_cache_dtype="int8"``, each a pair
   of int8 values ``(L, B, Smax, KV, hd)`` and f32 scales ``(L, B, Smax,
@@ -41,6 +49,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import embed_init, rms_norm
 
@@ -56,17 +65,18 @@ class MeshContext(NamedTuple):
     n_batch: int
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend != "tokens":
-        raise NotImplementedError(
-            f"family {cfg.family!r} with frontend {cfg.frontend!r} is not ported; "
-            "only the dense, ssm and hybrid token families are")
+_F32_PARAMS = ssm_mod.F32_PARAMS + moe_mod.F32_PARAMS
+
+
+def _check_family(cfg: ModelConfig, mesh_info: Optional["MeshContext"] = None) -> None:
+    if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
         # the JAX package's hybrid cache holds K/V in cfg.dtype while its
         # prefill returns int8 (values, scales) pairs: no engine can hold both
         raise NotImplementedError("an int8 KV cache is not ported for the hybrid family")
-    if cfg.family != "ssm":
-        attn_mod.check_supported(cfg)
+    if cfg.family == "moe" and mesh_info is not None:
+        raise NotImplementedError("the expert-parallel MoE path over a mesh is not ported")
 
 
 def hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -109,6 +119,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "lm_head": embed_init(generator, (D, Vp), dtype=dtype, device=device),
         "blocks": [],
     }
+    if cfg.frontend != "tokens":
+        params["frontend_proj"] = embed_init(generator, (D, D), dtype=dtype, device=device)
     for _ in range(cfg.n_layers):
         if cfg.family in ("ssm", "hybrid"):
             params["blocks"].append({
@@ -116,12 +128,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 "ssm": ssm_mod.init_ssm_params(generator, cfg, dtype, device),
             })
             continue
-        params["blocks"].append({
+        blk = {
             "ln1": torch.ones((D,), dtype=dtype, device=device),
             "ln2": torch.ones((D,), dtype=dtype, device=device),
             "attn": attn_mod.init_attn_params(generator, cfg, dtype, device),
-            "mlp": mlp_mod.init_mlp_params(generator, cfg, dtype, device),
-        })
+        }
+        if cfg.family == "moe":
+            blk["moe"] = moe_mod.init_moe_params(generator, cfg, dtype, device)
+        else:
+            blk["mlp"] = mlp_mod.init_mlp_params(generator, cfg, dtype, device)
+        params["blocks"].append(blk)
     if cfg.family == "hybrid":
         params["shared_attn"] = {
             "ln": torch.ones((D,), dtype=dtype, device=device),
@@ -143,9 +159,10 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
     """Convert the JAX package's params pytree, given as nested dicts of numpy
     arrays (blocks stacked on axis 0, weights (in, out)), into this package's
-    parameters on ``device``: ``A_log``, ``D`` and ``dt_bias`` in float32,
-    as the JAX package keeps them, every other leaf in ``cfg.dtype``. A
-    hybrid's ``shared_attn`` is one block, not stacked, and converts whole."""
+    parameters on ``device``: ``A_log``, ``D``, ``dt_bias`` and an MoE
+    ``router`` in float32, as the JAX package keeps them, every other leaf in
+    ``cfg.dtype``. A hybrid's ``shared_attn`` is one block, not stacked, and
+    converts whole. Padded heads arrive padded."""
     _check_family(cfg)
     dtype = _dtype(cfg)
 
@@ -153,7 +170,7 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
         if isinstance(tree, Mapping):
             return {k: conv(v, index, k) for k, v in tree.items()}
         a = np.asarray(tree)
-        leaf_dtype = torch.float32 if name in ssm_mod.F32_PARAMS else dtype
+        leaf_dtype = torch.float32 if name in _F32_PARAMS else dtype
         return _from_numpy(a if index is None else a[index], leaf_dtype, device)
 
     params = {k: conv(v, name=k) for k, v in np_params.items() if k != "blocks"}
@@ -166,9 +183,10 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig,
 # ======================================================================
 
 def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """batch has 'tokens' (B,S) integer ids."""
+    """batch has 'tokens' (B,S) integer ids or 'embeds' (B,S,D) frontend
+    embeddings (patches or frames), which go through ``frontend_proj``."""
     if "embeds" in batch:
-        raise NotImplementedError("embedding frontends (vlm/audio) are not ported")
+        return batch["embeds"].to(_dtype(cfg)) @ params["frontend_proj"]
     return params["embed"][batch["tokens"]]
 
 
@@ -186,9 +204,20 @@ def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # Full-sequence forward
 # ======================================================================
 
+def _ffn(blk, h: torch.Tensor, cfg: ModelConfig):
+    """The block's MLP or MoE on the normed residual: (out, load-balance
+    loss or None)."""
+    x = rms_norm(h, blk["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_forward(blk["moe"], x, cfg)
+        return y, aux["lb_loss"]
+    return mlp_mod.mlp_forward(blk["mlp"], x), None
+
+
 def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss scalar)."""
+    """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss
+    scalar: the mean load-balance loss over the layers for MoE, else 0)."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
@@ -202,11 +231,15 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
                                               rms_norm(h, shared["ln"], cfg.norm_eps), cfg,
                                               impl=impl)
         return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
+    lb = torch.zeros((), device=h.device)
     for blk in params["blocks"]:
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
                                       cfg, impl=impl)
-        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
-    return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
+        y, lb_i = _ffn(blk, h, cfg)
+        h = h + y
+        if lb_i is not None:
+            lb = lb + lb_i
+    return lm_logits(params, cfg, h), lb / cfg.n_layers
 
 
 # ======================================================================
@@ -222,7 +255,7 @@ def _kv_smax(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
     _check_family(cfg)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
-    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    KV, hd = cfg.eff_n_kv_heads, cfg.resolved_head_dim
     if cfg.family in ("ssm", "hybrid"):
         st = ssm_mod.init_ssm_state(cfg, batch, _dtype(cfg), device)
         cache = {"lengths": lengths,
@@ -250,10 +283,10 @@ def _layer(leaf, i: int):
 
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int,
             mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt; returns (last-position logits (B,Vp), filled cache).
-    ``mesh_info`` is taken for the JAX signature; only the unported MoE
-    family reads it in a prefill."""
-    _check_family(cfg)
+    """Run the prompt (``batch`` as :func:`embed_inputs` takes it); returns
+    (last-position logits (B,Vp), filled cache). ``mesh_info`` is taken for
+    the JAX signature; only the MoE family reads it in a prefill, and raises."""
+    _check_family(cfg, mesh_info)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
@@ -289,7 +322,7 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
             else:
                 big[i] = small
         h = h + o
-        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
+        h = h + _ffn(blk, h, cfg)[0]
     return lm_logits(params, cfg, h[:, -1]), cache
 
 
@@ -303,8 +336,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
     states. With the bool mask ``active`` (B,), inactive sequences keep
     their rows, their states and their lengths. With ``mesh_info`` and
     ``cfg.sharded_decode_attn``, attention (a hybrid's shared block too)
-    runs sequence-sharded."""
-    _check_family(cfg)
+    runs sequence-sharded. An MoE block routes all B rows, active or not,
+    as the JAX package does."""
+    _check_family(cfg, mesh_info)
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
     step = 1 if active is None else active.to(torch.int32)
@@ -332,6 +366,6 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
         h = h + attn_mod.attn_decode_dispatch(
             blk["attn"], x, _layer(cache["k"], i), _layer(cache["v"], i), lengths, cfg,
             mesh_info, impl=impl, active=active)
-        h = h + mlp_mod.mlp_forward(blk["mlp"], rms_norm(h, blk["ln2"], cfg.norm_eps))
+        h = h + _ffn(blk, h, cfg)[0]
     new_cache = {"lengths": lengths + step, "k": cache["k"], "v": cache["v"]}
     return lm_logits(params, cfg, h[:, 0]), new_cache

@@ -1,0 +1,124 @@
+"""Mixture-of-Experts block: the local path of ``repro.models.moe``.
+
+Dispatch is sort-based with group-local capacity, as in the JAX package:
+tokens are routed to their top-k experts by an f32 router, a stable sort
+over expert ids gives each slot its arrival position in its expert, slots
+past the capacity ``ceil(t k cf / E)`` drop into a dump row, and the
+experts run as three batched products over (E, capacity, D). Every shape
+comes from Python ints: the block makes no host sync (no ``nonzero``, no
+boolean indexing, no ``.item()``).
+
+The combine is deterministic: each token has exactly k slots, so its output
+is the sum of a (t, k, D) view over k in a fixed order, where the JAX
+package scatter-adds the slots (an atomic ``index_add_`` on the card would
+sum them in a varying order). Several dropped slots write the dump row; it
+is never read, so which of them lands there does not matter.
+
+A decode step routes all B rows of the batch, inactive ones too, as the
+JAX engine does (it masks the cache after the step): an inactive row can
+take capacity from an active one.
+
+The expert-parallel path over a mesh (``shard_map`` in the JAX package) is
+not ported: ``moe_forward`` with ``mesh_info`` raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init
+
+F32_PARAMS = ("router",)  # float32 in every config, as in the JAX package
+
+
+def init_moe_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                    device) -> dict:
+    D = cfg.d_model
+    E, Fd = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    return {
+        "router": dense_init(generator, (D, E), dtype=torch.float32, device=device),
+        "w_gate": dense_init(generator, (E, D, Fd), in_axis=1, dtype=dtype, device=device),
+        "w_up": dense_init(generator, (E, D, Fd), in_axis=1, dtype=dtype, device=device),
+        "w_down": dense_init(generator, (E, Fd, D), in_axis=1, dtype=dtype, device=device),
+    }
+
+
+def capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``t`` tokens."""
+    return max(1, int(math.ceil(t * cfg.moe.top_k * cfg.moe.capacity_factor
+                                / cfg.moe.n_experts)))
+
+
+def _route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """x2d (T, D) -> (gates (T,k) f32, experts (T,k) int64, router probs (T,E) f32).
+    ``torch.topk`` returns the k largest in descending order, as
+    ``jax.lax.top_k`` does."""
+    probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
+    gate_vals, experts = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    if cfg.moe.renorm_gate:
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return gate_vals, experts, probs
+
+
+def _positions_in_expert(e_flat: torch.Tensor) -> torch.Tensor:
+    """e_flat (M,) -> pos (M,): the rank of slot i among the slots routed to
+    its expert, in arrival order (a stable sort, then segment starts by a
+    running maximum)."""
+    m = e_flat.shape[0]
+    order = torch.argsort(e_flat, stable=True)
+    sorted_e = e_flat[order]
+    idx = torch.arange(m, device=e_flat.device)
+    is_start = torch.ones(m, dtype=torch.bool, device=e_flat.device)
+    is_start[1:] = sorted_e[1:] != sorted_e[:-1]
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    return torch.empty_like(idx).scatter_(0, order, idx - seg_start)
+
+
+def _expert_ffn(xd: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """xd (E, C, D) -> (E, C, D): SwiGLU per expert."""
+    return torch.bmm(F.silu(torch.bmm(xd, w_gate)) * torch.bmm(xd, w_up), w_down)
+
+
+def _dispatch(experts: torch.Tensor, cap: int, n_experts: int):
+    """(keep (M,) bool, dest (M,) row of each slot in the (E cap + 1)-row
+    dispatch buffer, the last row the dump) for the flattened top-k experts."""
+    e_flat = experts.reshape(-1)
+    pos = _positions_in_expert(e_flat)
+    keep = pos < cap
+    return keep, torch.where(keep, e_flat * cap + pos, n_experts * cap)
+
+
+def _moe_local(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, D) -> (y (B, S, D), aux: lb_loss, kept, slots)."""
+    b, s, d = x.shape
+    k, E = cfg.moe.top_k, cfg.moe.n_experts
+    t = b * s
+    x2d = x.reshape(t, d)
+    gates, experts, probs = _route(x2d, p["router"], cfg)
+    cap = capacity(t, cfg)
+    keep, dest = _dispatch(experts, cap, E)
+    dump = E * cap
+    disp = x.new_zeros((dump + 1, d)).index_copy_(0, dest, x2d.repeat_interleave(k, dim=0))
+    yd = _expert_ffn(disp[:dump].view(E, cap, d), p["w_gate"], p["w_up"], p["w_down"])
+    y_rep = yd.reshape(dump, d)[torch.clamp(dest, max=dump - 1)]
+    y_rep = torch.where(keep[:, None], y_rep, 0.0)
+    w = gates.reshape(t * k) * keep
+    y = (y_rep.float() * w[:, None]).view(t, k, d).sum(dim=1)
+    # Switch-style load-balance terms, over the full router probabilities
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, experts.reshape(-1), torch.ones_like(experts.reshape(-1)))
+    lb_loss = E * torch.sum(probs.mean(dim=0) * counts.float() / (t * k))
+    aux = {"lb_loss": lb_loss, "kept": keep.sum().float(), "slots": float(t * k)}
+    return y.view(b, s, d).to(x.dtype), aux
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[object] = None):
+    """MoE block.  x (B,S,D) -> (y (B,S,D), {"lb_loss", "drop_frac"})."""
+    if mesh_info is not None:
+        raise NotImplementedError("the expert-parallel MoE path over a mesh is not ported")
+    y, aux = _moe_local(p, x, cfg)
+    return y, {"lb_loss": aux["lb_loss"], "drop_frac": 1.0 - aux["kept"] / aux["slots"]}

@@ -27,7 +27,8 @@ SHAPES = [(1, 19, False), (1, 128, False), (1, 128, True), (16, 128, False), (16
           (8, 256, False), (2, 1024, False), (1, 2048, False), (1, 2048, True), (4, 4096, True)]
 ABLATION_SHAPES = [(1, 19, False), (1, 128, False), (1, 2048, False)]
 Y_ROLE = "  if (warp < NYW) {\n"
-STATE_MMA = "    mm_xtwb<NTW, LDP, LDN>(acc, xs_ + j0 * LDP, bs_ + j0 * LDN + n0, wv + j0, lane);"
+STATE_MMA = ("    mm_xtwb<MTW, NTW, LDP, LDN>(acc, xs_ + j0 * LDP + m0, bs_ + j0 * LDN + n0, "
+             "wv + j0, lane);")
 # name -> (text in the source, what replaces it), applied in order
 KNOCKOUTS = {
     "empty": [("  const int tid = threadIdx.x,",
@@ -108,9 +109,9 @@ def main():
 
     for b, s, with_h0 in SHAPES:
         args, h0 = _inputs(gen, b, s, with_h0)
-        chunks = -(-s // ssd.CHUNK)
+        chunks = -(-s // 128)
         print(f"probe chain (B, S) = ({b}, {s}) h0 {with_h0}: {chunks} chunks, "
-              f"{chunks * b * 80 * ssd.HEAD_DIM // ssd.COLUMNS} blocks, {time_ms(args, h0):.5f} ms",
+              f"{chunks * b * 80 * 64 // ssd.COLUMNS} blocks, {time_ms(args, h0):.5f} ms",
               flush=True)
     kernel = ssd._kernel
     libs = {"as built": kernel(), **_build_knockouts(_build)}

@@ -26,7 +26,10 @@ decode attention over the whole cache. The redesigned kernels are also held
 at the decode split's boundaries (lengths around multiples of 64, every
 GQA group up to 16), at flash's 64-row tile boundaries with right-aligned
 queries (Sq < Sk) and windows from one key to all of them, and to bitwise
-repeatability.
+repeatability. The SSD scan is also held at the reduced configs' shape
+(P = 32, N = 16, chunk 32) against both plain versions; a model with padded
+attention heads (head_dim 32) on the card against the CPU; and the MoE
+block (f32) on the card against the CPU and bitwise from call to call.
 """
 import numpy as np
 import pytest
@@ -383,12 +386,132 @@ def test_ssd_scan_kernel_leaves_its_flags_zero(cuda_device):
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
     rng = np.random.default_rng(11)
-    args, _ = _ssd_inputs(rng, 1, 8, 4, 1, 64, torch.float32, False, cuda_device, p=32)
+    args, _ = _ssd_inputs(rng, 1, 8, 4, 1, 64, torch.float32, False, cuda_device, p=48)
     with pytest.raises(ValueError, match="head_dim"):
         ops.ssd_scan(*args, impl="kernel")
+    args, _ = _ssd_inputs(rng, 1, 8, 4, 1, 64, torch.float32, False, cuda_device, p=32)
+    with pytest.raises(ValueError, match="d_state"):       # P = 32 is built only at N = 16
+        ops.ssd_scan(*args, chunk=32, impl="kernel")
+    args, _ = _ssd_inputs(rng, 1, 8, 4, 1, 16, torch.float32, False, cuda_device, p=32)
+    with pytest.raises(ValueError, match="chunk"):         # ... and chunk 32
+        ops.ssd_scan(*args, chunk=128, impl="kernel")
     args, _ = _ssd_inputs(rng, 1, 8, 4, 1, 64, torch.float32, False, cuda_device)
     with pytest.raises(ValueError, match="chunk"):
         ops.ssd_scan(*args, chunk=64, impl="kernel")
     with pytest.raises(ValueError, match="d_state"):
         ops.ssd_scan(*_ssd_inputs(rng, 1, 8, 4, 1, 32, torch.float32, False, cuda_device)[0],
                      impl="kernel")
+
+
+# The reduced Mamba2 and hybrid configs' SSM shape: P = 32, N = 16, chunk 32
+REDUCED_SSD_SHAPES = [
+    # (B, S, H, G): the serving CLI's prompts of 3 and 19 tokens, one chunk
+    # and its edges, a ragged third chunk, and a long chain
+    (1, 3, 8, 1),
+    (1, 19, 8, 1),
+    (1, 19, 4, 1),
+    (1, 31, 4, 1),
+    (1, 32, 4, 1),
+    (1, 33, 4, 1),
+    (2, 65, 4, 1),
+    (2, 97, 8, 2),
+    (4, 4096, 8, 1),
+]
+
+
+def _reduced_ssd(rng, b, s, h, g, dtype, with_h0, device):
+    return _ssd_inputs(rng, b, s, h, g, 16, dtype, with_h0, device, p=32)
+
+
+@pytest.mark.parametrize("shape", REDUCED_SSD_SHAPES)
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_at_the_reduced_shape(cuda_device, shape, with_h0, dtype):
+    """Against the plain version and against the kernel's algorithm in
+    PyTorch (ssd_scan_chained_plain), bitwise from call to call, the
+    device's chain flags left zero."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, g = shape
+    args, h0 = _reduced_ssd(np.random.default_rng(18), b, s, h, g, dtype, with_h0, cuda_device)
+    got_y, got_h = ops.ssd_scan(*args, chunk=32, impl="kernel", initial_state=h0)
+    again = ops.ssd_scan(*args, chunk=32, impl="kernel", initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, again[0]) and torch.equal(got_h, again[1])
+    assert not ssd._syncs[cuda_device.index or 0].any()
+    assert got_y.dtype == dtype and got_y.shape == args[0].shape
+    assert got_h.dtype == torch.float32 and got_h.shape == (b, h, 32, 16)
+    for fn in (ssd.ssd_scan_plain, ssd.ssd_scan_chained_plain):
+        want_y, want_h = fn(*args, chunk=32, initial_state=h0)
+        _close(got_y, want_y, dtype, SSD_TOL)
+        _close(got_h, want_h, dtype, SSD_TOL)
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]
+
+
+def test_head_padding_through_the_kernels(cuda_device):
+    """3 query and 3 kv heads of head_dim 32 padded to 4 and 4: the model on
+    the card (flash and decode kernels over the padded heads) against the
+    same weights on the CPU (plain versions), f32, and the padded model on
+    the card against the unpadded one there."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), n_heads=3, n_kv_heads=3,
+                              head_dim=32, d_model=96, dtype="float32")
+    cfgp = dataclasses.replace(cfg, head_pad_multiple=4)
+    params, paramsp = (M.init_params(c, torch.Generator().manual_seed(0), device="cpu")
+                       for c in (cfg, cfgp))
+    on_card = {"padded": (cfgp, _to(paramsp, cuda_device)),
+               "unpadded": (cfg, _to(params, cuda_device))}
+    prompt = torch.from_numpy(np.random.default_rng(19).integers(0, cfg.vocab_size, (2, 19)))
+    feed = torch.from_numpy(np.random.default_rng(20).integers(0, cfg.vocab_size, (4, 2)))
+    flash0, decode0 = fa.launches, da.launches
+    logits = {}
+    for name, (c, p) in {"cpu": (cfgp, paramsp), **on_card}.items():
+        dev = "cpu" if name == "cpu" else cuda_device
+        lg, cache = M.prefill(p, c, {"tokens": prompt.to(dev)}, max_len=32)
+        out = [lg]
+        for tok in feed:
+            lg, cache = M.decode_step(p, c, cache, tok.to(dev))
+            out.append(lg)
+        logits[name] = torch.stack(out).cpu()
+    assert fa.launches - flash0 == 2 * cfg.n_layers and da.launches - decode0 == 8 * cfg.n_layers
+    torch.testing.assert_close(logits["padded"], logits["cpu"], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(logits["padded"], logits["unpadded"], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("experts,top_k,cf", [(4, 2, 8.0), (128, 8, 1.25)])
+def test_moe_block_on_the_card_matches_the_cpu(cuda_device, experts, top_k, cf):
+    """The MoE block (f32) on the card against itself on the CPU: the
+    reduced configs' 4 experts, top-2, no drops; 128 experts, top-8 at
+    factor 1.25, qwen3-moe-30b-a3b's routing at batch 4 (capacity 1, some
+    slots drop). Bitwise from call to call on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    base = get_config("qwen3-moe-30b-a3b").reduced()
+    cfg = dataclasses.replace(base, d_model=256, dtype="float32", moe=dataclasses.replace(
+        base.moe, n_experts=experts, top_k=top_k, capacity_factor=cf))
+    params = moe.init_moe_params(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.from_numpy(np.random.default_rng(21).normal(size=(4, 1, 256)).astype(np.float32))
+    want_y, want_aux = moe.moe_forward(params, x, cfg)
+    card = _to(params, cuda_device)
+    got_y, got_aux = moe.moe_forward(card, x.to(cuda_device), cfg)
+    again_y, again_aux = moe.moe_forward(card, x.to(cuda_device), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, again_y) and torch.equal(got_aux["lb_loss"], again_aux["lb_loss"])
+    assert float(got_aux["drop_frac"]) == float(want_aux["drop_frac"])
+    assert (float(want_aux["drop_frac"]) > 0) == (cf < 8)
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got_aux["lb_loss"].cpu(), want_aux["lb_loss"], atol=1e-6, rtol=1e-6)

@@ -11,8 +11,10 @@ groups at N = 64. Tolerances: float32 3e-4 (tests/test_kernels.py's SSD
 tolerance; the chunked form sums in another order than the recurrence),
 bfloat16 2e-2. The rounding plan is also held against ``ssd_scan_plain``
 (f32 throughout) at S = 2048 and 4096, where the state has passed through
-16 and 32 chunks. The CUDA kernel itself is held against the plain version
-in tests/test_torch_kernels_cuda.py.
+16 and 32 chunks. The reduced configs' shape (P = 32, N = 16, chunk 32:
+one column half, two row tiles, the state in 2 x 2 tiles) is held the same
+way at lengths 31 to 97. The CUDA kernel itself is held against the plain
+version in tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 CHUNK = 128
 EDGES = [127, 128, 129, 255, 257]
 GROUPS = [(1, 128), (2, 64)]  # (G, N)
+REDUCED_EDGES = [31, 32, 33, 64, 65, 97]  # chunk 32: one chunk to four
 
 
 @pytest.fixture(autouse=True)
@@ -63,14 +66,14 @@ def _inputs(b, s, h, g, n, dtype, with_h0, seed, p=64):
     }
 
 
-def _jax(inp, dtype, jax_impl):
+def _jax(inp, dtype, jax_impl, chunk=CHUNK):
     cast = {"x": dtype, "B": dtype, "C": dtype}
     j = {k: None if v is None else jnp.asarray(v, getattr(jnp, cast.get(k, "float32")))
          for k, v in inp.items()}
     if jax_impl == "ref":
         return jref.ssd_reference(j["x"], j["dt"], j["A"], j["B"], j["C"], j["D"],
                                   initial_state=j["h0"])
-    return jops.ssd_scan(j["x"], j["dt"], j["A"], j["B"], j["C"], j["D"], chunk=CHUNK,
+    return jops.ssd_scan(j["x"], j["dt"], j["A"], j["B"], j["C"], j["D"], chunk=chunk,
                          impl=jax_impl, initial_state=j["h0"])
 
 
@@ -80,9 +83,9 @@ def _torch(inp, dtype):
             for k, v in inp.items()}
 
 
-def _chained(t, plain=False):
+def _chained(t, plain=False, chunk=CHUNK):
     fn = ssd.ssd_scan_plain if plain else ssd.ssd_scan_chained_plain
-    return fn(t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"], chunk=CHUNK,
+    return fn(t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"], chunk=chunk,
               initial_state=t["h0"])
 
 
@@ -92,10 +95,11 @@ def _close(got, want, dtype):
     np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def test_tickets_are_chunk_major_and_cover_every_block():
+@pytest.mark.parametrize("p", sorted({shape[0] for shape in ssd.SHAPES}))
+def test_tickets_are_chunk_major_and_cover_every_block(p):
     nc, h, b = 3, 5, 2
-    halves = ssd.HEAD_DIM // ssd.COLUMNS
-    blocks = [ssd.ticket_block(t, h, b) for t in range(nc * halves * h * b)]
+    halves = p // ssd.COLUMNS
+    blocks = [ssd.ticket_block(t, h, b, p) for t in range(nc * halves * h * b)]
     assert sorted(blocks) == [(c, hf, hh, bb) for c in range(nc) for hf in range(halves)
                               for hh in range(h) for bb in range(b)]
     ticket = {blk: t for t, blk in enumerate(blocks)}
@@ -141,5 +145,31 @@ def test_rounding_plan_holds_on_long_chains(s, h, n, with_h0):
     t = _torch(_inputs(1, s, h, 1, n, "bfloat16", with_h0, seed=s + n + with_h0), "bfloat16")
     want_y, want_h = _chained(t, plain=True)
     got_y, got_h = _chained(t)
+    _close(got_y, want_y, "bfloat16")
+    _close(got_h, want_h, "bfloat16")
+
+
+@pytest.mark.parametrize("jax_impl", ["pallas_interpret", "ref"])
+@pytest.mark.parametrize("s", REDUCED_EDGES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_chained_matches_jax_at_the_reduced_shape_float32(jax_impl, s, with_h0):
+    """The reduced Mamba2 and hybrid configs' SSM shape: P = 32 (one column
+    half), N = 16, chunk 32."""
+    assert (32, 16, 32) in ssd.SHAPES
+    inp = _inputs(1, s, 4, 1, 16, "float32", with_h0, seed=s + 7, p=32)
+    want_y, want_h = _jax(inp, "float32", jax_impl, chunk=32)
+    got_y, got_h = _chained(_torch(inp, "float32"), chunk=32)
+    assert got_y.shape == inp["x"].shape and got_h.shape == (1, 4, 32, 16)
+    _close(got_y, want_y, "float32")
+    _close(got_h, want_h, "float32")
+
+
+@pytest.mark.parametrize("s", REDUCED_EDGES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_chained_matches_jax_at_the_reduced_shape_bfloat16(s, with_h0):
+    inp = _inputs(2, s, 4, 1, 16, "bfloat16", with_h0, seed=2 * s + 7, p=32)
+    want_y, want_h = _jax(inp, "bfloat16", "pallas_interpret", chunk=32)
+    got_y, got_h = _chained(_torch(inp, "bfloat16"), chunk=32)
+    assert got_y.dtype == torch.bfloat16
     _close(got_y, want_y, "bfloat16")
     _close(got_h, want_h, "bfloat16")
