@@ -24,7 +24,13 @@ Phases, one line of output each (or more):
      function (scaled_dot_product_attention for attention, a yardstick the
      port never calls; no single PyTorch call computes the SSD scan or
      unnormalized decode partials) and the least time the card could take
-     (bound);
+     (bound); and the flash-attention backward kernel (training), with the
+     forward's log-sum-exp, against their plain versions (bf16 2e-2, f32
+     2e-5; the LSE 2e-5) at musicgen-medium's training step (4, 128, 24
+     heads over 24 of 64), qwen2-7b at S = 2048 causal and under a window of
+     1024, zamba2-1.2b's shared attention at S = 2048 and reduced
+     granite-8b's training step (head_dim 32), timed beside SDPA's forward +
+     backward through autograd;
   3. each serving path at full width (bf16, random weights from a seed)
      through the speculative agent loop, speculation off then on, with the
      kernels' launch counts over that run and the profiles of a batched
@@ -57,6 +63,22 @@ Phases, one line of output each (or more):
      oracle path; then the serving CLI (``launch/serve.py``'s ``main``) on
      every arch, reduced (the SSD scan must launch for mamba2-2.7b and
      zamba2-1.2b);
+  T. training (``launch/train.py``): full-width musicgen-medium (48 layers,
+     remat, bf16, random weights from seed 0) for 5 steps of 4 x 128 tokens,
+     each step's loss, grad norm and wall time, the peak device memory and
+     the kernels' launches (flash forward 96 a step, backward 48 calls of 3
+     launches); a run stopped after step 2 (its async checkpoint) and one
+     resumed from it, whose losses of steps 3 to 5 (the last two after
+     updates from the restored optimizer state) must equal the
+     uninterrupted run's bit for bit; one more step timed on the host's
+     clock and the next under torch.profiler (device time, kernels, busy
+     share, the flash kernels' shares, the forward and backward alone);
+     that step's gradients through the kernels against those through the
+     oracle attention (``TRAIN_BOUND``), and a control, the backward kernel
+     fed a zero o (so delta = rowsum(dO o) = 0), which must fall outside
+     that bound; ssd_scan under autograd on the card must raise; then
+     reduced granite-8b trained 100 steps on the card, whose loss must drop
+     by more than 0.5;
   R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
      none of the kernels (their counts must stay 0): (a) the speculative-
      serving demos of launch/speculative_serving.py with their asserts;
@@ -68,7 +90,8 @@ Phases, one line of output each (or more):
      pass at K = 12, 96, 768 and 3072 candidates: ``admit_beam`` on the
      card (host wall, and device time and launches from torch.profiler),
      ``_admit_numpy`` on the host and ``score_beam`` per call;
-  5. one JSON line on the kernels; last, one JSON line on the device.
+  5. one JSON line on the kernels (the backward kernel with phase T's
+     launches); last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -91,6 +114,13 @@ PEAK_BYTES = 3.35e12                                            # H100 SXM HBM3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-4}  # tests/test_kernels.py's SSD tolerance
 L2_FLUSH_BYTES = 128 << 20      # larger than the 50 MB L2: each timed call starts cold
+# phase T: one full-width bf16 training step through the kernels against the
+# same step through the oracle attention (attn_impl="ref", which rounds its
+# scores to bf16): relative loss and grad-norm gaps, and per wq/wk/wv leaf the
+# max |difference| over max |oracle| and the cosine. Each limit is 2-6x the
+# largest sound reading on an H100 (loss 1.7e-5, grad norm 5.0e-4, leaf 0.045,
+# cosine 0.9986); a backward without delta must fall outside it (PERF.md)
+TRAIN_BOUND = {"loss": 1e-4, "grad_norm": 2e-3, "leaf_rel": 0.1, "leaf_cos": 0.995}
 
 
 def _time_ms(fn, iters, flush):
@@ -222,6 +252,72 @@ def flash_case(ops, gen, flush, b, s, h, kv, d, dtype, window, timed):
     case["ms"] = _time_ms(lambda: ops.flash_attention(q, k, v, impl="kernel", **kw), iters, flush)
     case["plain_ms"] = _time_ms(lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
                                 iters, flush)
+    case["library_ms"] = _time_ms(library, iters, flush)
+    return case
+
+
+def flash_bwd_case(ops, fa, gen, flush, b, s, h, kv, d, dtype, window):
+    """The backward kernel against flash_attention_bwd_plain on the same
+    (q, k, v, o, lse, dO), o and lse from the forward kernel, whose o is
+    held against flash_attention_plain (``TOL``) and whose LSE against the
+    plain version's (2e-5); bitwise from call to call.
+    Timed cold: the backward kernel alone (ms), the plain backward
+    (plain_ms), the kernels' forward + backward through autograd
+    (fwd_bwd_ms), and SDPA's forward + backward through autograd
+    (library_ms, a yardstick the port never calls). The bound counts the
+    backward's five products over the visible pairs (S = q k^T, dP = dO
+    v^T, dV, dK, dQ: 10 D operations a pair and head) and its bytes: q, k,
+    v, o, dO, lse read once, dq, dk, dv written once."""
+    F = torch.nn.functional
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    name = f"flash_attention_bwd {[b, s, h, kv, d]} window {window}"
+    o, lse = fa.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    o_plain, lse_plain = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    o_err = _check(f"{name} o", o, o_plain, dtype)
+    lse_err = (lse - lse_plain).abs().max().item()
+    assert torch.allclose(lse, lse_plain, atol=2e-5, rtol=2e-5), f"{name}: lse err {lse_err}"
+    assert torch.equal(o, fa.flash_attention_kernel(q, k, v, **kw)), \
+        f"{name}: o differs with and without lse"
+    got = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    again = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got, strict=True)), \
+        f"{name}: two calls differ"
+    case = {"shape": [b, s, h, kv, d], "dtype": str(dtype).split(".")[1], "window": window,
+            "o_err": o_err, "lse_err": lse_err,
+            "max_abs_err": max(_check(f"{name} {g_name}", g, w, dtype)
+                               for g_name, g, w in zip(("dq", "dk", "dv"), got, want,
+                                                       strict=True))}
+    pos = torch.arange(s)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    flops = 10 * int(mask.sum()) * d * h * b
+    case["bound_ms"], case["bound_by"] = _bound(_nbytes(q, k, v, o, do, lse, *got), flops, dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    lib_do = do.transpose(1, 2)
+    lib_mask = None if window is None else mask.cuda()
+
+    def fwd_bwd():
+        return torch.autograd.grad(ops.flash_attention(*leaves, window=window), leaves, do)
+
+    def library():
+        out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=lib_mask,
+                                             is_causal=window is None, enable_gqa=True)
+        return torch.autograd.grad(out, lib_leaves, lib_do)
+
+    iters = 10 if s > 512 else 30
+    case["ms"] = _time_ms(lambda: fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw),
+                          iters, flush)
+    case["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                                iters, flush)
+    case["fwd_bwd_ms"] = _time_ms(fwd_bwd, iters, flush)
     case["library_ms"] = _time_ms(library, iters, flush)
     return case
 
@@ -831,6 +927,249 @@ def admission_times(pe, box, device):
     return rows
 
 
+def _recording_steps(steps_mod, record):
+    """Wrap ``steps_mod.train_step`` so that each step appends its loss,
+    grad norm and wall time (to a synchronised end) to ``record``; returns
+    the original."""
+    real = steps_mod.train_step
+
+    def recorded(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        record.append({"loss": float(out[2]["loss"]), "grad_norm": float(out[2]["grad_norm"]),
+                       "wall_s": time.perf_counter() - t0})
+        return out
+
+    steps_mod.train_step = recorded
+    return real
+
+
+def _grad_agreement(got, want):
+    """Max |difference| over max |reference| and the cosine of two gradients."""
+    g, w = got.float().flatten(), want.float().flatten()
+    rel = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+    cos = (torch.dot(g, w) / (g.norm() * w.norm()).clamp(min=1e-30)).item()
+    return rel, cos
+
+
+def _train_bound_misses(loss, ref_loss, norm, ref_norm, agree):
+    """The readings of one step against the oracle path's that fall outside
+    ``TRAIN_BOUND``, as [name, reading, limit]."""
+    misses = []
+    for name, got, ref in (("loss", loss, ref_loss), ("grad_norm", norm, ref_norm)):
+        rel = abs(got - ref) / abs(ref)
+        if not rel <= TRAIN_BOUND[name]:
+            misses.append([name, rel, TRAIN_BOUND[name]])
+    for key, (rel, cos) in agree.items():
+        if not rel <= TRAIN_BOUND["leaf_rel"]:
+            misses.append([f"{key} leaf_rel", rel, TRAIN_BOUND["leaf_rel"]])
+        if not cos >= TRAIN_BOUND["leaf_cos"]:
+            misses.append([f"{key} leaf_cos", cos, TRAIN_BOUND["leaf_cos"]])
+    return misses
+
+
+def kernel_counters():
+    """name -> (module, attribute) of each kernel wrapper's launch count."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": (fa, "launches"), "decode_attention": (da, "launches"),
+            "decode_attention_partials": (da, "partials_launches"),
+            "ssd_scan": (ssd, "launches"), "flash_attention_bwd": (fa, "bwd_launches")}
+
+
+def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, restart_at=2):
+    """Phase T: full-width musicgen-medium trained on the card through the
+    port's training driver (flash forward and backward kernels on the
+    path), stopped and resumed from a checkpoint, profiled over one step and
+    held against the oracle attention path; then reduced granite-8b trained
+    100 steps, which must learn. Records the training path's launch counts
+    in ``launches``."""
+    counters = kernel_counters() if counters is None else counters
+    launches = {} if launches is None else launches
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    arch = "musicgen-medium"
+    cfg = get_config(arch)
+    state_gb = cfg.n_params() * 12 / 1e9
+    print(f"phase T {arch}: {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_params() / 1e9:.3f} "
+          f"B params, remat {cfg.remat}; params and grads bf16, m and v f32: {state_gb:.3f} GB of "
+          f"training state", flush=True)
+    kw = dict(reduced=False, seq_len=seq_len, global_batch=batch, device="cuda", log_every=1)
+    record = []
+    real = _recording_steps(steps_mod, record)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    print(f"phase T checkpoints under {build}: {shutil.disk_usage(build).free / 1e9:.1f} GB free",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=build) as ckpt_dir:
+        try:
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            params, opt_state, losses = train(arch, steps=steps, **kw)
+            wall = time.time() - t0
+            counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            for i, r in enumerate(record):
+                print(f"phase T {arch} step {i}: {json.dumps(r)}", flush=True)
+            print(f"phase T {arch} {steps} steps of {batch} x {seq_len} tokens: "
+                  f"{wall:.1f} s wall; peak device memory {peak:.3f} GB "
+                  f"(state {state_gb:.3f} GB); launches {counts}", flush=True)
+            assert counts["flash_attention"] == 2 * cfg.n_layers * steps, counts  # remat: twice
+            assert counts["flash_attention_bwd"] == fa.BWD_KERNELS * cfg.n_layers * steps, counts
+            assert counts["ssd_scan"] == counts["decode_attention"] == 0, counts
+            assert counts["decode_attention_partials"] == 0, counts
+            assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in record)
+            launches["flash_attention_bwd"] = counts["flash_attention_bwd"]
+            launches["flash_attention_train"] = counts["flash_attention"]
+            del params, opt_state
+            torch.cuda.empty_cache()
+
+            # a run stopped after step `restart_at` (its checkpoint written by
+            # the async writer while the loop returns), then a run resumed from
+            # it to step `steps`: its losses must be the uninterrupted run's bit
+            # for bit, those after the first resumed update included (so the
+            # restored m, v and step are held as well as the params). Two
+            # checkpoints of 18.2 GB in all: a machine may cap what one run
+            # writes to its disk
+            record.clear()
+            t0 = time.time()
+            _, _, first = train(arch, steps=restart_at, ckpt_dir=ckpt_dir, **kw)
+            saved = sorted(os.listdir(ckpt_dir))
+            t1 = time.time()
+            params, opt_state, resumed = train(arch, steps=steps, ckpt_dir=ckpt_dir, **kw)
+            print(f"phase T {arch} stopped after step {restart_at} ({t1 - t0:.1f} s, checkpoints "
+                  f"{saved}) and resumed to step {steps} ({time.time() - t1:.1f} s): losses "
+                  f"{first!r} + {resumed!r} against {losses!r} uninterrupted", flush=True)
+            assert saved == [f"step_{restart_at}"], saved
+            assert len(resumed) >= 2 and first + resumed == losses, (first, resumed, losses)
+        finally:
+            steps_mod.train_step = real
+
+    # two more steps: one timed on the host's clock (no checkpoint write in
+    # flight), one under torch.profiler; then the model's forward and
+    # backward alone under the profiler, so the optimizer's share shows
+    dc = DataConfig(seed=0, seq_len=seq_len + 1, global_batch=batch)
+    tbatch = [{k: torch.from_numpy(v).cuda() for k, v in batch_at(cfg, dc, i).items()}
+              for i in (steps, steps + 1)]
+    oc = opt_mod.AdamWConfig(lr=3e-4, total_steps=max(steps, 10), warmup_steps=max(2, steps // 10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, _ = steps_mod.train_step(params, opt_state, tbatch[0], cfg=cfg, opt_cfg=oc)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    fa_fwd, fa_bwd = fa.launches, fa.bwd_launches
+
+    def traced(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        assert kernels and sum(e.self_device_time_total for e in kernels) > 0, \
+            "the profiler recorded no device time"
+        return out, kernels
+
+    (params, opt_state, metrics), kernels = traced(lambda: steps_mod.train_step(
+        params, opt_state, tbatch[1], cfg=cfg, opt_cfg=oc))
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    row = {"loss": float(metrics["loss"]), "device_ms": device_ms,
+           "kernels": sum(e.count for e in kernels), "wall_ms": wall_ms,
+           "busy": device_ms / wall_ms}
+    for label, symbol in (("flash_fwd", "flash_attention_bf16_kernel"),
+                          ("flash_bwd", "flash_bwd_")):
+        mine = [e for e in kernels if symbol in e.key]
+        assert mine, f"the trace holds no {symbol} kernel"
+        row[f"{label}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+        row[f"{label}_share"] = row[f"{label}_ms"] / device_ms
+        row[f"{label}_kernel_launches"] = sum(e.count for e in mine)
+    row["flash_fwd_launches"] = fa.launches - fa_fwd
+    row["flash_bwd_launches"] = fa.bwd_launches - fa_bwd
+    assert (row["flash_fwd_launches"], row["flash_bwd_launches"]) == (
+        2 * cfg.n_layers, fa.BWD_KERNELS * cfg.n_layers), row
+    assert row["flash_bwd_kernel_launches"] == row["flash_bwd_launches"], row
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    row["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]
+    _, fb_kernels = traced(lambda: steps_mod.loss_and_grads(params, cfg, tbatch[1]))
+    row["forward_backward_device_ms"] = sum(e.self_device_time_total for e in fb_kernels) / 1e3
+    row["forward_backward_kernels"] = sum(e.count for e in fb_kernels)
+    print(f"phase T {arch} one step (wall from the step before, device from torch.profiler): "
+          f"{json.dumps(row)}", flush=True)
+
+    # the same step's gradients through the kernels and through the oracle
+    check = tbatch[1]
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    _, m_k, g_k = steps_mod.loss_and_grads(params, cfg, check)
+    _, m_r, g_r = steps_mod.loss_and_grads(params, ref_cfg, check)
+    n_k, n_r = opt_mod.global_norm(g_k).item(), opt_mod.global_norm(g_r).item()
+    loss_k, loss_r = float(m_k["loss"]), float(m_r["loss"])
+    layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+    agree = {f"{w}[{i}]": _grad_agreement(g_k["blocks"][i]["attn"][w], g_r["blocks"][i]["attn"][w])
+             for i in layers for w in ("wq", "wk", "wv")}
+    print(f"phase T {arch} one step, kernels against the oracle path (attn_impl='ref'): loss "
+          f"{loss_k!r} / {loss_r!r}, grad_norm {n_k!r} / {n_r!r}; per leaf (max |diff| / max "
+          f"|ref|, cosine): {json.dumps(agree)}", flush=True)
+    misses = _train_bound_misses(loss_k, loss_r, n_k, n_r, agree)
+    assert not misses, misses
+
+    # the control: the backward kernel fed a zero o, so that dS = P dP with
+    # no delta, a wrong gradient, must fall outside the bound
+    real_bwd = fa.flash_attention_bwd_kernel
+    fa.flash_attention_bwd_kernel = (
+        lambda q, k, v, o, *a, **kw: real_bwd(q, k, v, torch.zeros_like(o), *a, **kw))
+    try:
+        _, m_c, g_c = steps_mod.loss_and_grads(params, cfg, check)
+    finally:
+        fa.flash_attention_bwd_kernel = real_bwd
+    n_c, loss_c = opt_mod.global_norm(g_c).item(), float(m_c["loss"])
+    agree_c = {f"{w}[{i}]": _grad_agreement(g_c["blocks"][i]["attn"][w], g_r["blocks"][i]["attn"][w])
+               for i in layers for w in ("wq", "wk", "wv")}
+    misses = _train_bound_misses(loss_c, loss_r, n_c, n_r, agree_c)
+    print(f"phase T {arch} control, the backward without delta, against the oracle path: loss "
+          f"{loss_c!r}, grad_norm {n_c!r}; per leaf {json.dumps(agree_c)}; outside TRAIN_BOUND: "
+          f"{json.dumps(misses)}", flush=True)
+    assert misses, "a backward without delta passed TRAIN_BOUND"
+    del params, opt_state, g_k, g_r, g_c
+    torch.cuda.empty_cache()
+
+    # the SSD kernel has no backward yet: under autograd on the card it raises
+    x = torch.randn((1, 19, 8, 32), device="cuda", requires_grad=True)
+    bc = torch.randn((1, 19, 1, 16), device="cuda")
+    try:
+        ops.ssd_scan(x, torch.full((1, 19, 8), 0.1, device="cuda"), -torch.ones(8, device="cuda"),
+                     bc, bc, torch.ones(8, device="cuda"), chunk=32)
+        raise AssertionError("ssd_scan under autograd on the card returned an output")
+    except NotImplementedError as err:
+        print(f"phase T ssd_scan under autograd on the card raises: {err}", flush=True)
+
+    # reduced granite-8b, 100 steps: the twin of test_training_reduces_loss
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.time()
+    _, _, losses = train("granite-8b", reduced=True, steps=100, seq_len=64, global_batch=8,
+                         lr=3e-3, device="cuda", log_every=0)
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"phase T granite-8b reduced, 100 steps: loss {losses[0]!r} -> {losses[-1]!r} in "
+          f"{time.time() - t0:.1f} s; launches {counts}", flush=True)
+    assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
+    n_layers = get_config("granite-8b").reduced().n_layers
+    assert counts["flash_attention"] == n_layers * 100, counts
+    assert counts["flash_attention_bwd"] == fa.BWD_KERNELS * n_layers * 100, counts
+
+
 def runtime_phase(device="cuda"):
     """Phase R: the B-PASTE runtime of the port. (a) the speculative-serving
     demos with their asserts; (b) the serve-box cell at c = 256 on the host
@@ -937,7 +1276,6 @@ def main():
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.mesh import make_local_mesh, mesh_axes, mesh_counts
     from repro_torch.launch.serve import serve_agent_loop
     from repro_torch.models import model as M
@@ -1037,6 +1375,19 @@ def main():
                                             (4, 4096, 8, True, timed)):
             cases["ssd_scan"].append(ssd_case(ops, gen, flush, b, s, h, 32, 1, 16, dtype,
                                               with_h0, timed_ssd, chunk=32))
+    # the backward kernel (training): musicgen-medium's training step (4 x 128
+    # tokens, 24 heads over 24 of head_dim 64), qwen2-7b at S = 2048 causal and
+    # under a window of 1024, zamba2-1.2b's shared attention at S = 2048, and
+    # reduced granite-8b's training step (8 x 64, 4 heads over 2 of head_dim
+    # 32); a generator of their own, so that the cases above keep their inputs
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases["flash_attention_bwd"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, kv, d, window in ((4, 128, 24, 24, 64, None), (1, 2048, 28, 4, 128, None),
+                                       (1, 2048, 28, 4, 128, 1024), (1, 2048, 32, 32, 64, None),
+                                       (8, 64, 4, 2, 32, None)):
+            cases["flash_attention_bwd"].append(
+                flash_bwd_case(ops, fa, gen, flush, b, s, h, kv, d, dtype, window))
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)
@@ -1045,9 +1396,7 @@ def main():
     pe = PatternEngine(context_len=2, min_support=3).fit(
         episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
     episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
-    counters = {"flash_attention": (fa, "launches"), "decode_attention": (da, "launches"),
-                "decode_attention_partials": (da, "partials_launches"),
-                "ssd_scan": (ssd, "launches")}
+    counters = kernel_counters()
     launches = {}
 
     cfg = get_config("qwen2-7b")
@@ -1199,6 +1548,9 @@ def main():
         if arch_cfg.family != "ssm":
             assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
 
+    # ---- phase T: training at full width (musicgen-medium), then reduced --
+    training_phase(counters, launches)
+
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -1223,6 +1575,11 @@ def main():
                  "decode_attention": case_at("decode_attention", [4, 32, 4, 128, 192]),
                  "decode_attention_partials": cases["decode_attention_partials"][0],  # 4 x 48
                  "ssd_scan": cases["ssd_scan"][1]}                  # S=19 speculative prefill
+    replaces["flash_attention_bwd"] = ("jax.vjp of src/repro/kernels/ops.py::"
+                                       "_jnp_flash_attention (no Pallas backward exists)")
+    source["flash_attention_bwd"] = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    # musicgen-medium's training step (phase T's main path)
+    path_case["flash_attention_bwd"] = case_at("flash_attention_bwd", [4, 128, 24, 24, 64])
     kernels = []
     for name in replaces:
         c = path_case[name]
@@ -1234,6 +1591,8 @@ def main():
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "at": {"shape": c["shape"], "dtype": c["dtype"]},
         })
+    # the forward kernel's launches on the training path (phase T), beside the serving count
+    kernels[0]["training_launches"] = launches["flash_attention_train"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,10 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
-# The head_dims that csrc/flash_attention.cu and csrc/decode_attention.cu
-# instantiate (their ``switch (d)``); both wrappers check against this.
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan")
+# The head_dims that csrc/flash_attention.cu, csrc/flash_attention_bwd.cu and
+# csrc/decode_attention.cu instantiate (their ``switch (d)``); the wrappers
+# check against this.
 ATTENTION_HEAD_DIMS = (32, 64, 128)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

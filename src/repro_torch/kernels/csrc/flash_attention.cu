@@ -11,6 +11,13 @@
 //   Query positions are right-aligned (qpos = i + Sk - Sq), as in the
 //   reference oracle; the serving path has Sq == Sk.
 //
+// Log-sum-exp: given a non-null lse (B, H, Sq) f32, each row also writes
+//   m + log(l), its running max and sum in the scaled units the kernel
+//   keeps (scale * q k^T), for the backward pass
+//   (csrc/flash_attention_bwd.cu), which recomputes P = exp(scale q k^T -
+//   lse) from it. Serving passes null: nothing else changes, so o is bit
+//   for bit what it is without lse.
+//
 // Bound on the H100: at long prompts the 4 * (visible q-k pairs) * D * H
 //   operations, on the bf16 tensor cores; at the serving path's prompts
 //   (S = 3 to 19) the launch and one trip to device memory.
@@ -67,8 +74,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int KV, int causal, int window,
-    float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
+    int window, float scale) {
   constexpr int DP = D + 1;     // padded row stride of the q and k tiles
   constexpr int CPT = D / TPR;  // accumulator columns per thread
   __shared__ float qs[BQ * DP];
@@ -167,16 +174,17 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) ob[sub + TPR * j] = from_float<T>(acc[j] / denom);
+    if (lse != nullptr && sub == 0) lse[((long)b * H + h) * Sq + q0 + row] = m + logf(denom);
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-               int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+               int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_f32_kernel<float, D><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Sk, H, KV, causal, window, scale);
+      static_cast<float*>(o), lse, Sq, Sk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,8 +254,9 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 template <int TD>
 __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-    int KV, int causal, int window, float scale) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal, int window,
+    float scale) {
   constexpr int TRS = trs<TD>();
   constexpr int TILE = tile<TD>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -417,45 +426,55 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
       *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * q_stride + c) =
           pack_bf16(acc[nt][2] * r1, acc[nt][3] * r1);
   }
+  if (lse != nullptr && t == 0) {  // m and l are the same on the 4 lanes of a quad
+    float* lb = lse + ((long)b * H + h) * Sq;
+    if (row0 < Sq) lb[row0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (row0 + 8 < Sq) lb[row0 + 8] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
 }
 
 template <int TD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+                int Sk, int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_bf16_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize, tsmem<TD>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Sq + TBQ - 1) / TBQ, H, B);
   flash_attention_bf16_kernel<TD><<<grid, NT, tsmem<TD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int KV, int causal, int window, float scale, int dtype, cudaStream_t st) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, st);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int KV, int causal, int window, float scale, int dtype,
+           cudaStream_t st) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, st);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q (B,Sq,H,D), k/v (B,Sk,KV,D), o (B,Sq,H,D), all contiguous. D is 32, 64
-// or 128, the head_dims the kernel is built for. dtype: 0 float32,
-// 1 bfloat16. window < 0 means none. Returns the cudaError_t of the launch.
+// q (B,Sq,H,D), k/v (B,Sk,KV,D), o (B,Sq,H,D), all contiguous; lse (B,H,Sq)
+// f32, or null to write none. D is 32, 64 or 128, the head_dims the kernel
+// is built for. dtype: 0 float32, 1 bfloat16. window < 0 means none.
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                                   int window, float scale, int dtype, void* stream) {
+                                   float* lse, int B, int Sq, int Sk, int H, int KV, int D,
+                                   int causal, int window, float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sq > Sk || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 32: return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 64: return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 128:
+      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,21 +1,29 @@
-"""Flash attention (prefill): the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention (prefill and training): the hand-written CUDA kernels and
+their plain PyTorch versions.
 
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` (the Hopper
 port of ``repro/kernels/flash_attention.py::flash_attention_pallas``; its
-source carries the design note). ``flash_attention_plain`` is the same
-computation in PyTorch: a loop over KV blocks with a streaming fp32
-softmax. The CPU tests run the plain version; on the card it is only the
-yardstick the kernel is held against.
+source carries the design note); with ``return_lse`` it also returns the
+per-row log-sum-exp. ``flash_attention_bwd_kernel`` launches
+``csrc/flash_attention_bwd.cu``, the backward (dQ, dK, dV from q, k, v, o,
+lse and dO; the JAX package has no Pallas backward and differentiates its
+jnp path). :class:`FlashAttentionFn` joins the two for autograd.
+
+``flash_attention_plain``, ``flash_attention_fwd_lse_plain`` and
+``flash_attention_bwd_plain`` are the same computations in PyTorch: loops
+over KV blocks with a streaming fp32 softmax, and for the backward a loop
+that recomputes P from the LSE. The CPU tests run the plain versions; on
+the card they are only the yardsticks the kernels are held against.
 
 Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype,
-query positions right-aligned (qpos = i + Sk - Sq).
+query positions right-aligned (qpos = i + Sk - Sq); lse (B, H, Sq) f32, in
+the scaled units of the scores (scale * q k^T).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,14 +34,24 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = _build.ATTENTION_HEAD_DIMS  # the head_dims the kernel is built for
 _BLOCK_K = 128  # keys per step of the plain version's loop
 
-launches = 0  # kernel launches made by flash_attention_kernel; callers may reset it
+launches = 0      # kernel launches made by flash_attention_kernel; callers may reset it
+bwd_launches = 0  # kernel launches made by flash_attention_bwd_kernel; likewise
+BWD_KERNELS = 3   # launches a backward call makes: delta, dK/dV, dQ
 
 
-def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool, window: Optional[int], scale: float,
-) -> torch.Tensor:
-    """Streaming-softmax attention in PyTorch: a loop over KV blocks."""
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return mask
+
+
+def _plain_forward(q, k, v, causal, window, scale):
+    """The streaming softmax: (out (B,Sq,H,D) in q's dtype, running max m
+    and sum l (B,Sq,KV,grp) f32)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     grp = h // kv
@@ -47,11 +65,7 @@ def flash_attention_plain(
         vblk = v[:, k0:k0 + _BLOCK_K].float()
         s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kblk)
         kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)
-        mask = torch.ones((sq, kblk.shape[1]), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= qpos[:, None] >= kpos[None, :]
-        if window is not None:
-            mask &= (qpos[:, None] - kpos[None, :]) < window
+        mask = _mask(qpos, kpos, causal, window)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -60,21 +74,86 @@ def flash_attention_plain(
         acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vblk)
         m = m_new
     out = acc / torch.clamp(denom[..., None], min=1e-30)
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return out.reshape(b, sq, h, d).to(q.dtype), m, denom
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool, window: Optional[int], scale: float,
+) -> torch.Tensor:
+    """Streaming-softmax attention in PyTorch: a loop over KV blocks."""
+    return _plain_forward(q, k, v, causal, window, scale)[0]
+
+
+def flash_attention_fwd_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool, window: Optional[int], scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain` and the per-row log-sum-exp m + log(l)
+    (B, H, Sq) f32, as the kernel writes it."""
+    out, m, denom = _plain_forward(q, k, v, causal, window, scale)
+    b, sq, h, _ = q.shape
+    lse = m + torch.log(torch.clamp(denom, min=1e-30))
+    return out, lse.reshape(b, sq, h).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, causal: bool, window: Optional[int], scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward in PyTorch, as the kernel computes it: delta = rowsum(dO
+    * O), then a loop over KV blocks that recomputes P = exp(scale q k^T -
+    lse), with dS = P * (dO V^T - delta); dV = P^T dO, dK = scale dS^T Q,
+    dQ = scale dS K, each summed over the grp query heads of a kv head.
+    Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    grp = h // kv
+    qf = q.float().reshape(b, sq, kv, grp, d)
+    dof = do.float().reshape(b, sq, kv, grp, d)
+    delta = (dof * o.float().reshape(b, sq, kv, grp, d)).sum(dim=-1)
+    lse_r = lse.transpose(1, 2).reshape(b, sq, kv, grp)
+    qpos = torch.arange(sq, device=q.device) + (sk - sq)
+    dq = torch.zeros((b, sq, kv, grp, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, sk, kv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, sk, kv, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, _BLOCK_K):
+        kblk = k[:, k0:k0 + _BLOCK_K].float()
+        vblk = v[:, k0:k0 + _BLOCK_K].float()
+        kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)
+        mask = _mask(qpos, kpos, causal, window)[None, :, None, None, :]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kblk) * scale
+        p = torch.where(mask, torch.exp(s - lse_r[..., None]), 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vblk)
+        ds = p * (dp - delta[..., None])
+        dv[:, k0:k0 + _BLOCK_K] = torch.einsum("bqhgk,bqhgd->bkhd", p, dof)
+        dk[:, k0:k0 + _BLOCK_K] = torch.einsum("bqhgk,bqhgd->bkhd", ds, qf) * scale
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, kblk)
+    dq = (dq * scale).reshape(b, sq, h, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _error_string(err: int) -> str:
-    fn = _build.load("flash_attention").flash_attention_error_string
+def _bwd_kernel():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _error_string(err: int, source: str = "flash_attention") -> str:
+    fn = getattr(_build.load(source), f"{source}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
@@ -113,23 +192,85 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
 
 def flash_attention_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool, window: Optional[int], scale: float,
-) -> torch.Tensor:
+    causal: bool, window: Optional[int], scale: float, return_lse: bool = False,
+):
     """Launch the CUDA kernel on PyTorch's current stream; raises on a CPU
-    tensor, on an input it does not take, or if the launch fails."""
+    tensor, on an input it does not take, or if the launch fails. Returns
+    o, or (o, lse (B,H,Sq) f32) with ``return_lse``."""
     global launches
     _check(q, k, v, window)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b, sq, sk, h, kv, d, int(causal), -1 if window is None else int(window),
         float(scale), DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {_error_string(err)}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, causal: bool, window: Optional[int], scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (three launches on PyTorch's current
+    stream): (dq, dk, dv) in q's dtype. Raises on a CPU tensor, on an input
+    it does not take, or if a launch fails."""
+    global bwd_launches
+    _check(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not match "
+                             f"q {tuple(q.shape)} {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, sq)} tensor on {q.device}; "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, sk, h, kv, d, int(causal), -1 if window is None else int(window),
+        float(scale), DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        raise RuntimeError("flash_attention backward kernel launch failed: "
+                           f"{_error_string(err, 'flash_attention_bwd')}")
+    bwd_launches += BWD_KERNELS
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernels on both sides: the forward kernel, keeping
+    its LSE for the backward, and the backward kernel. CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], scale: float):
+        o, lse = flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal, window=ctx.window,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None, None

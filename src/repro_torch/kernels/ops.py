@@ -8,6 +8,20 @@ impl selection:
               chunked SSD)
   'ref'    -> the materialized or sequential oracle from ref.py
 
+Under autograd (grad mode on and an input that requires grad):
+  attention  on a CUDA tensor, 'auto' and 'kernel' run
+             ``flash_attention.FlashAttentionFn``: the forward kernel, which
+             keeps its log-sum-exp, and the hand-written backward kernel;
+             with no grad the forward kernel runs alone, as in serving. On
+             a CPU tensor 'auto' is the plain version, and autograd through
+             it is the CPU training path. 'plain' and 'ref' are autograd
+             through those versions on either device.
+  ssd_scan   on a CUDA tensor, 'auto' and 'kernel' raise
+             NotImplementedError: the SSD backward kernel is not written yet
+             (the next slice), and the kernel's output would be a leaf with
+             no gradient. On the CPU, autograd through the plain version.
+  decode     serving only; autograd through the kernels is not supported.
+
 Signatures and layouts follow ``repro.kernels.ops``: BSHD for prefill,
 q (B,H,D) against a (B,Smax,KV,D) cache (or a slice of one, for the
 split-KV partials) for decode, x (B,S,H,P) with
@@ -36,6 +50,10 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -53,6 +71,8 @@ def flash_attention(
         return _ref.mha_reference(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "plain":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window, scale)
     return _fa.flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale)
 
 
@@ -126,6 +146,11 @@ def ssd_scan(
         return _ref.ssd_reference(x, dt, A, B, C, D, initial_state=initial_state)
     if impl == "plain":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
+    if _needs_grad(x, dt, A, B, C, D, initial_state):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (the next slice of the port: an SSD backward "
+            "kernel, then Mamba2 / hybrid training on the card); under autograd on a CUDA "
+            "tensor use impl='plain' or 'ref'")
     return _ssd.ssd_scan_kernel(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
 
 

@@ -45,6 +45,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -214,29 +215,48 @@ def _ffn(blk, h: torch.Tensor, cfg: ModelConfig):
     return mlp_mod.mlp_forward(blk["mlp"], x), None
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), its activations recomputed in the backward pass under
+    ``cfg.remat`` (``jax.checkpoint`` in the JAX package) while autograd
+    records; a plain call otherwise."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss
-    scalar: the mean load-balance loss over the layers for MoE, else 0)."""
+    scalar: the mean load-balance loss over the layers for MoE, else 0).
+    Under ``cfg.remat`` each block (each Mamba2 layer of a hybrid, whose
+    shared attention is not) is recomputed in the backward pass, as the JAX
+    package checkpoints the body of its layer scan."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
     if cfg.family in ("ssm", "hybrid"):
+        def ssm_block(blk, h):
+            return h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
+                                           impl=impl)
+
         for i, blk in enumerate(params["blocks"]):
-            h = h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
-                                        impl=impl)
+            h = _remat(cfg, ssm_block, blk, h)
             if _shared_attn_index(cfg, i) is not None:
                 shared = params["shared_attn"]
                 h = h + attn_mod.attn_forward(shared["attn"],
                                               rms_norm(h, shared["ln"], cfg.norm_eps), cfg,
                                               impl=impl)
         return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
-    lb = torch.zeros((), device=h.device)
-    for blk in params["blocks"]:
+
+    def attn_block(blk, h):
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
                                       cfg, impl=impl)
         y, lb_i = _ffn(blk, h, cfg)
-        h = h + y
+        return h + y, lb_i
+
+    lb = torch.zeros((), device=h.device)
+    for blk in params["blocks"]:
+        h, lb_i = _remat(cfg, attn_block, blk, h)
         if lb_i is not None:
             lb = lb + lb_i
     return lm_logits(params, cfg, h), lb / cfg.n_layers

@@ -30,6 +30,13 @@ repeatability. The SSD scan is also held at the reduced configs' shape
 (P = 32, N = 16, chunk 32) against both plain versions; a model with padded
 attention heads (head_dim 32) on the card against the CPU; and the MoE
 block (f32) on the card against the CPU and bitwise from call to call.
+The flash-attention backward kernel (training) is held against its plain
+version at every head_dim, lengths at the tiles' edges (1, 63, 64, 65,
+200), GQA groups 1 and 4, with and without a window and with Sq < Sk
+(float32 2e-5, bfloat16 2e-2), and to bitwise repeatability; the forward's
+log-sum-exp output against the plain LSE, with o unchanged bit for bit;
+autograd through ops.flash_attention on the card against autograd over the
+oracle; and ops.ssd_scan under autograd on the card must raise.
 """
 import numpy as np
 import pytest
@@ -208,7 +215,9 @@ def test_c_entries_refuse_a_head_dim_they_are_not_built_for(cuda_device):
     buf = torch.zeros(4096, dtype=torch.float32, device=cuda_device)
     p = buf.data_ptr()
     st = torch.cuda.current_stream(cuda_device).cuda_stream
-    assert fa._kernel()(p, p, p, p, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1, st) == 1
+    assert fa._kernel()(p, p, p, p, None, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1, st) == 1
+    assert fa._bwd_kernel()(p, p, p, p, p, p, p, p, p, p, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1,
+                            st) == 1
     assert da._kernel()(p, p, p, p, p, p, p, 1, 64, 4, 2, 48, -1, 1.0, 1, 1, 64, st) == 1
     assert da._partials_kernel()(p, p, p, p, p, p, p, p, p, 1, 64, 64 * 2 * 48, 4, 2, 48, -1,
                                  1.0, 1, 1, 64, st) == 1
@@ -515,3 +524,140 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda_device, experts, top_k, cf):
     assert (float(want_aux["drop_frac"]) > 0) == (cf < 8)
     torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(got_aux["lb_loss"].cpu(), want_aux["lb_loss"], atol=1e-6, rtol=1e-6)
+
+
+# ---- the flash-attention backward (training) ------------------------------
+
+BWD_LENGTHS = [1, 63, 64, 65, 200]   # on and around the 32-row and 64-row tiles
+
+
+def _bwd_inputs(rng, b, sq, sk, h, kv, d, dtype, device, window):
+    """q, k, v, dO and the forward kernel's o and lse on them."""
+    q = _randn(rng, (b, sq, h, d), dtype, device)
+    k, v = (_randn(rng, (b, sk, kv, d), dtype, device) for _ in range(2))
+    do = _randn(rng, (b, sq, h, d), dtype, device)
+    o, lse = fa.flash_attention_kernel(q, k, v, causal=True, window=window, scale=d ** -0.5,
+                                       return_lse=True)
+    return q, k, v, do, o, lse
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sq", BWD_LENGTHS)
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("grp", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda_device, d, sq, window, grp, dtype):
+    """dQ, dK, dV of the backward kernel against flash_attention_bwd_plain on
+    the same (q, k, v, o, lse, dO), at every head_dim the kernel is built
+    for, lengths at the tiles' edges, GQA groups 1 and 4, with and without
+    a window; float32 at 2e-5, bfloat16 at 2e-2 (both sum in fp32 in
+    another order and round the outputs once)."""
+    rng = np.random.default_rng(30)
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    q, k, v, do, o, lse = _bwd_inputs(rng, 2, sq, sq, 2 * grp, 2, d, dtype, cuda_device, window)
+    got = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, ref in zip(got, want, (q, k, v), strict=True):
+        assert g.dtype == dtype and g.shape == ref.shape
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("extra_keys", [1, 37, 130])
+@pytest.mark.parametrize("window", [None, 1, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_right_aligned_queries(cuda_device, d, extra_keys, window, dtype):
+    """Sq < Sk: queries right-aligned to the last keys, so key tiles before
+    the first query's position are seen by every row (or, under a window,
+    by none), and keys no query sees get zero gradient."""
+    rng = np.random.default_rng(31)
+    sq = 65
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    q, k, v, do, o, lse = _bwd_inputs(rng, 1, sq, sq + extra_keys, 8, 2, d, dtype, cuda_device,
+                                      window)
+    got = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_forward_lse(cuda_device, d, dtype, window):
+    """The forward with the LSE output writes o bit for bit as without it,
+    and its LSE agrees with the plain version's (f32 at 2e-5; bf16 inputs
+    at 2e-5 too: the LSE is fp32 on both sides, from the same inputs)."""
+    rng = np.random.default_rng(32)
+    q = _randn(rng, (2, 200, 8, d), dtype, cuda_device)
+    k, v = (_randn(rng, (2, 200, 2, d), dtype, cuda_device) for _ in range(2))
+    kw = dict(causal=True, window=window, scale=d ** -0.5)
+    o, lse = fa.flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    o_plain_entry = fa.flash_attention_kernel(q, k, v, **kw)
+    _, lse_plain = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_plain_entry)
+    assert lse.shape == (2, 8, 200) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, lse_plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_bitwise_repeatable(cuda_device, d, dtype):
+    """No atomics: the GQA sum over a kv head's query heads runs in a fixed
+    order, so two calls are bitwise equal."""
+    rng = np.random.default_rng(33)
+    kw = dict(causal=True, window=100, scale=d ** -0.5)
+    q, k, v, do, o, lse = _bwd_inputs(rng, 2, 300, 300, 28, 4, d, dtype, cuda_device, 100)
+    first = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    second = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_grads_match_autograd_over_the_oracle(cuda_device, d, dtype):
+    """ops.flash_attention under autograd on the card runs FlashAttentionFn
+    (one forward launch, and one backward call of three launches); its
+    gradients agree with autograd over impl='ref' (f32 at 1e-4: the oracle
+    materializes S and sums in another order; bf16 at 2e-2 against the
+    oracle in f32 on the same bf16 inputs, rounded once)."""
+    rng = np.random.default_rng(34)
+    b, s, h, kv = 2, 130, 8, 2
+    leaves = [_randn(rng, shape, dtype, cuda_device).requires_grad_()
+              for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    do = _randn(rng, (b, s, h, d), dtype, cuda_device)
+    fwd0, bwd0 = fa.launches, fa.bwd_launches
+    out = ops.flash_attention(*leaves, window=64)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (fa.launches - fwd0, fa.bwd_launches - bwd0) == (1, fa.BWD_KERNELS)
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    ref_out = ops.flash_attention(*ref_leaves, window=64, impl="ref")
+    want = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol)
+    with torch.no_grad():
+        ops.flash_attention(*leaves, window=64)
+    assert fa.bwd_launches - bwd0 == fa.BWD_KERNELS
+
+
+def test_ssd_scan_under_grad_raises_on_the_card(cuda_device):
+    """The SSD kernel has no backward yet: under autograd on a CUDA tensor
+    ops.ssd_scan raises instead of returning an output with no gradient;
+    with no grad it runs the kernel as in serving."""
+    rng = np.random.default_rng(35)
+    b, s, h, p, g, n = 1, 19, 8, 32, 1, 16
+    x = _randn(rng, (b, s, h, p), torch.float32, cuda_device).requires_grad_()
+    dt = torch.full((b, s, h), 0.1, device=cuda_device)
+    A = -torch.ones(h, device=cuda_device)
+    B, C = (_randn(rng, (b, s, g, n), torch.float32, cuda_device) for _ in range(2))
+    D = torch.ones(h, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+    with torch.no_grad():
+        y, _ = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+    assert y.shape == x.shape

@@ -38,6 +38,7 @@ COPIED = [
     "core/analysis.py",
     "core/runtime.py",
     "analysis.py",
+    "data/pipeline.py",
 ] + sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py"))
 
 # The copies may differ from their originals by these edits, applied to
