@@ -8,8 +8,11 @@ Phases, one line of output each (or more):
      hand-written CUDA kernels from src/repro_torch/kernels/csrc, with
      ptxas's registers, spills and shared memory per kernel instantiation
      and, where the toolkit has cuobjdump, the tensor-core (HMMA)
-     instructions in each kernel's SASS (the SSD scan must spill nothing
-     and have HMMA in its bf16 instantiations);
+     instructions in each kernel's SASS (the SSD scan and the flash
+     backward must spill nothing, and the SSD scan's bf16 instantiations
+     and the flash backward's bf16 dK/dV and dQ kernels must have HMMA;
+     one line gives each backward instantiation's registers, spills and
+     HMMA count);
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
      serving paths' shapes and at long shapes (for the SSD scan also a chain
@@ -150,57 +153,6 @@ def _time_ms(fn, iters, flush):
     return total / iters
 
 
-def _demangle(names):
-    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
-    if not names or not os.path.exists(tool):
-        return names
-    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
-                         timeout=60).stdout.splitlines()
-    if len(out) != len(names):
-        return names
-    # drop the namespace, the casts of template arguments and the parameter list
-    return [re.sub(r"\((?:int|bool|long)\)", "", o.replace("(anonymous namespace)::", ""))
-            .split("(")[0].removeprefix("void ") for o in out]
-
-
-def ptxas_report(log):
-    """Registers, spill bytes and static shared memory of each kernel
-    instantiation, from nvcc's ``-Xptxas -v`` report."""
-    rows, fn = [], None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            fn = {"fn": ln.split("'")[1]}
-            rows.append(fn)
-        elif fn is not None and "spill stores" in ln:
-            words = ln.replace(",", "").split()
-            fn["spill_bytes"] = int(words[words.index("spill") - 2]) + int(words[-4])
-        elif fn is not None and "Used " in ln:
-            words = ln.replace(",", "").split()
-            fn["registers"] = int(words[words.index("registers") - 1])
-            fn["smem_static"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
-    for row, name in zip(rows, _demangle([r["fn"] for r in rows]), strict=True):
-        row["fn"] = name
-    return rows
-
-
-def sass_hmma(library):
-    """HMMA (tensor-core) instructions in each kernel of a built library's
-    SASS, or None where the toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
-                          timeout=120).stdout
-    counts, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function : " in ln:
-            fn = ln.split("Function : ")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in ln:
-            counts[fn] += 1
-    return dict(zip(_demangle(list(counts)), counts.values(), strict=True))
-
-
 def _bound(n_bytes, flops, dtype):
     by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
@@ -264,10 +216,13 @@ def flash_bwd_case(ops, fa, gen, flush, b, s, h, kv, d, dtype, window):
     Timed cold: the backward kernel alone (ms), the plain backward
     (plain_ms), the kernels' forward + backward through autograd
     (fwd_bwd_ms), and SDPA's forward + backward through autograd
-    (library_ms, a yardstick the port never calls). The bound counts the
+    (library_ms, a yardstick the port never calls); and one cold call
+    under torch.profiler, its device time split by kernel (kernel_ms:
+    delta, dK/dV, the GQA sum where grp > 1, dQ). The bound counts the
     backward's five products over the visible pairs (S = q k^T, dP = dO
     v^T, dV, dK, dQ: 10 D operations a pair and head) and its bytes: q, k,
     v, o, dO, lse read once, dq, dk, dv written once."""
+    from torch.profiler import ProfilerActivity, profile
     F = torch.nn.functional
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dtype)
@@ -319,6 +274,13 @@ def flash_bwd_case(ops, fa, gen, flush, b, s, h, kv, d, dtype, window):
                                 iters, flush)
     case["fwd_bwd_ms"] = _time_ms(fwd_bwd, iters, flush)
     case["library_ms"] = _time_ms(library, iters, flush)
+    flush.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    case["kernel_ms"] = {re.search(r"flash_bwd_\w+", e.key).group(0): e.self_device_time_total / 1e3
+                         for e in prof.key_averages() if "flash_bwd_" in e.key}
     return case
 
 
@@ -1003,6 +965,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
 
     arch = "musicgen-medium"
     cfg = get_config(arch)
+    bwd_per_call = fa.bwd_kernels(cfg.eff_n_heads, cfg.eff_n_kv_heads)
     state_gb = cfg.n_params() * 12 / 1e9
     print(f"phase T {arch}: {cfg.n_layers} layers d_model {cfg.d_model} {cfg.n_params() / 1e9:.3f} "
           f"B params, remat {cfg.remat}; params and grads bf16, m and v f32: {state_gb:.3f} GB of "
@@ -1030,7 +993,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
                   f"{wall:.1f} s wall; peak device memory {peak:.3f} GB "
                   f"(state {state_gb:.3f} GB); launches {counts}", flush=True)
             assert counts["flash_attention"] == 2 * cfg.n_layers * steps, counts  # remat: twice
-            assert counts["flash_attention_bwd"] == fa.BWD_KERNELS * cfg.n_layers * steps, counts
+            assert counts["flash_attention_bwd"] == bwd_per_call * cfg.n_layers * steps, counts
             assert counts["ssd_scan"] == counts["decode_attention"] == 0, counts
             assert counts["decode_attention_partials"] == 0, counts
             assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in record)
@@ -1099,7 +1062,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     row["flash_fwd_launches"] = fa.launches - fa_fwd
     row["flash_bwd_launches"] = fa.bwd_launches - fa_bwd
     assert (row["flash_fwd_launches"], row["flash_bwd_launches"]) == (
-        2 * cfg.n_layers, fa.BWD_KERNELS * cfg.n_layers), row
+        2 * cfg.n_layers, bwd_per_call * cfg.n_layers), row
     assert row["flash_bwd_kernel_launches"] == row["flash_bwd_launches"], row
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     row["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]
@@ -1165,9 +1128,10 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     print(f"phase T granite-8b reduced, 100 steps: loss {losses[0]!r} -> {losses[-1]!r} in "
           f"{time.time() - t0:.1f} s; launches {counts}", flush=True)
     assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
-    n_layers = get_config("granite-8b").reduced().n_layers
-    assert counts["flash_attention"] == n_layers * 100, counts
-    assert counts["flash_attention_bwd"] == fa.BWD_KERNELS * n_layers * 100, counts
+    small = get_config("granite-8b").reduced()
+    assert counts["flash_attention"] == small.n_layers * 100, counts
+    assert counts["flash_attention_bwd"] == fa.bwd_kernels(
+        small.eff_n_heads, small.eff_n_kv_heads) * small.n_layers * 100, counts
 
 
 def runtime_phase(device="cuda"):
@@ -1293,15 +1257,24 @@ def main():
     logs = _build.build()
     print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)}", flush=True)
     for name, log in logs.items():
-        report = ptxas_report(log)
+        report = _build.ptxas_report(log)
         print(f"phase 1 {name} ptxas: {json.dumps(report)}", flush=True)
-        hmma = sass_hmma(_build.library_path(name))
+        hmma = _build.sass_hmma(_build.library_path(name))
         if hmma is not None:
             print(f"phase 1 {name} HMMA instructions per kernel in the SASS: "
                   f"{json.dumps(hmma)}", flush=True)
         if name == "ssd_scan":
             assert all(r.get("spill_bytes", 0) == 0 for r in report), report
             assert hmma is None or all(v > 0 for fn, v in hmma.items() if "bfloat16" in fn), hmma
+        if name == "flash_attention_bwd":
+            rows = [[r["fn"], r.get("registers"), r.get("spill_bytes", 0),
+                     None if hmma is None else hmma.get(r["fn"])] for r in report]
+            print(f"phase 1 flash_attention_bwd instantiations [kernel, registers, spill bytes, "
+                  f"HMMA]: {json.dumps(rows)}", flush=True)
+            assert all(r.get("spill_bytes", 0) == 0 for r in report), report
+            tc = {fn: n for fn, n in (hmma or {}).items() if "dkdv_bf16" in fn or "dq_bf16" in fn}
+            assert hmma is None or (len(tc) == 2 * len(_build.ATTENTION_HEAD_DIMS)
+                                    and all(tc.values())), hmma
 
     # ---- phase 2: kernels against their plain versions ------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)

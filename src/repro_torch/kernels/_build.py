@@ -9,16 +9,20 @@ each instantiation, from ``-Xptxas -v``) is kept beside the library as
 ``.log``, so it can be read after a cached build too. A failed build raises
 with nvcc's output. Nothing is built when a module is imported, only at a
 kernel's first launch or when a caller asks for :func:`build`.
+:func:`ptxas_report` reads that report per kernel instantiation, and
+:func:`sass_hmma` counts the tensor-core instructions of each kernel in a
+built library (chip_smoke.py and the card tests read both).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -89,3 +93,55 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     return ctypes.CDLL(str(path))
+
+
+def _demangle(names: List[str]) -> List[str]:
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not names or not os.path.exists(tool):
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    # drop the namespace, the casts of template arguments and the parameter list
+    out = [re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:int|bool|long)\)", "", o)
+           for o in out]
+    return [o.split("(")[0].removeprefix("void ") for o in out]
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Registers, spill bytes and static shared memory of each kernel
+    instantiation, from nvcc's ``-Xptxas -v`` report."""
+    rows, fn = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = {"fn": ln.split("'")[1]}
+            rows.append(fn)
+        elif fn is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            fn["spill_bytes"] = int(words[words.index("spill") - 2]) + int(words[-4])
+        elif fn is not None and "Used " in ln:
+            words = ln.replace(",", "").split()
+            fn["registers"] = int(words[words.index("registers") - 1])
+            fn["smem_static"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+    for row, name in zip(rows, _demangle([r["fn"] for r in rows]), strict=True):
+        row["fn"] = name
+    return rows
+
+
+def sass_hmma(library: Path) -> Optional[Dict[str, int]]:
+    """HMMA (tensor-core) instructions in each kernel of a built library's
+    SASS, or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return dict(zip(_demangle(list(counts)), counts.values(), strict=True))

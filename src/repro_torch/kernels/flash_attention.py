@@ -14,6 +14,9 @@ jnp path). :class:`FlashAttentionFn` joins the two for autograd.
 over KV blocks with a streaming fp32 softmax, and for the backward a loop
 that recomputes P from the LSE. The CPU tests run the plain versions; on
 the card they are only the yardsticks the kernels are held against.
+``flash_attention_bwd_tiled_plain`` is the bf16 backward kernel's algorithm
+in PyTorch (its tiles and visibility limits, the per-query-head partials
+and their fixed-order GQA sum, P and dS rounded to bf16), for the tests.
 
 Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype,
 query positions right-aligned (qpos = i + Sk - Sq); lse (B, H, Sq) f32, in
@@ -36,7 +39,13 @@ _BLOCK_K = 128  # keys per step of the plain version's loop
 
 launches = 0      # kernel launches made by flash_attention_kernel; callers may reset it
 bwd_launches = 0  # kernel launches made by flash_attention_bwd_kernel; likewise
-BWD_KERNELS = 3   # launches a backward call makes: delta, dK/dV, dQ
+BWD_TILE = 64     # rows of the bf16 backward kernel's tiles: keys (dK/dV) or query rows (dQ)
+
+
+def bwd_kernels(h: int, kv: int) -> int:
+    """Launches a backward call makes: delta, dK/dV and dQ, and with GQA
+    (h > kv) the fixed-order sum of each kv head's per-query-head partials."""
+    return 3 if h == kv else 4
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -133,6 +142,90 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_query_rows(k0: int, sq: int, sk: int, causal: bool,
+                   window: Optional[int]) -> Tuple[int, int]:
+    """The query rows [i_lo, i_hi) that see some key of the backward
+    kernel's key tile at k0 (its dK/dV pass), as the kernel computes them."""
+    off = sk - sq
+    k_last = min(k0 + BWD_TILE, sk) - 1
+    i_lo = max(0, k0 - off) if causal else 0
+    i_hi = min(sq, k_last + window - off) if window is not None else sq
+    return i_lo, i_hi
+
+
+def bwd_key_range(q0: int, sq: int, sk: int, causal: bool,
+                  window: Optional[int]) -> Tuple[int, int]:
+    """The keys [k_begin, k_end) that the backward kernel's dQ pass visits
+    for the query tile at q0, in tiles from k_begin, as the kernel computes
+    them (the forward's limits)."""
+    off = sk - sq
+    qpos_lo, qpos_hi = q0 + off, min(q0 + BWD_TILE, sq) - 1 + off
+    k_end = min(sk, qpos_hi + 1) if causal else sk
+    k_begin = max(0, qpos_lo - window + 1) // BWD_TILE * BWD_TILE if window is not None else 0
+    return k_begin, k_end
+
+
+def flash_attention_bwd_tiled_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, causal: bool, window: Optional[int], scale: float, round_p_ds: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward kernel's algorithm in PyTorch, for the tests. dK/dV
+    pass: per 64-key tile and query head, the 64-row query tiles from
+    :func:`bwd_query_rows`; per-query-head f32 partials, summed over each
+    kv head's grp query heads in the order g = 0 .. grp - 1, then dK times
+    scale. dQ pass: per 64-row query tile, the 64-key tiles of
+    :func:`bwd_key_range`. With ``round_p_ds`` (the kernel's bf16 body), P
+    and dS are rounded to bf16 where the kernel packs them as mma operands;
+    everything else is f32. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    grp = h // kv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(grp, dim=2)  # query head h reads kv head h // grp
+    vf = v.float().repeat_interleave(grp, dim=2)
+    delta = (dof * o.float()).sum(dim=-1).transpose(1, 2)  # (b, h, sq)
+    qpos = torch.arange(sq, device=q.device) + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)
+
+    def p_ds(i0, i1, k0, k1):
+        """P and dS (b, h, rows, keys) of query rows i0:i1 against keys k0:k1."""
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, i0:i1], kf[:, k0:k1]) * scale
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, i0:i1], vf[:, k0:k1])
+        mask = _mask(qpos[i0:i1], kpos[k0:k1], causal, window)
+        p = torch.where(mask, torch.exp(s - lse[:, :, i0:i1, None]), 0.0)
+        ds = p * (dp - delta[:, :, i0:i1, None])
+        if round_p_ds:
+            p, ds = p.bfloat16().float(), ds.bfloat16().float()
+        return p, ds
+
+    part_k = torch.zeros((b, sk, h, d), dtype=torch.float32, device=q.device)
+    part_v = torch.zeros_like(part_k)
+    for k0 in range(0, sk, BWD_TILE):
+        k1 = min(k0 + BWD_TILE, sk)
+        i_lo, i_hi = bwd_query_rows(k0, sq, sk, causal, window)
+        for i0 in range(i_lo, i_hi, BWD_TILE):
+            i1 = min(i0 + BWD_TILE, sq)
+            p, ds = p_ds(i0, i1, k0, k1)
+            part_v[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", p, dof[:, i0:i1])
+            part_k[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, i0:i1])
+    part_k = part_k.reshape(b, sk, kv, grp, d)
+    part_v = part_v.reshape(b, sk, kv, grp, d)
+    dk, dv = part_k[:, :, :, 0], part_v[:, :, :, 0]
+    for g in range(1, grp):
+        dk, dv = dk + part_k[:, :, :, g], dv + part_v[:, :, :, g]
+    dk = dk * scale
+
+    dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, BWD_TILE):
+        q1 = min(q0 + BWD_TILE, sq)
+        k_begin, k_end = bwd_key_range(q0, sq, sk, causal, window)
+        for k0 in range(k_begin, k_end, BWD_TILE):
+            _, ds = p_ds(q0, q1, k0, min(k0 + BWD_TILE, sk))
+            dq[:, q0:q1] += torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, k0:k0 + BWD_TILE])
+    dq = dq * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
@@ -145,7 +238,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -221,9 +314,9 @@ def flash_attention_bwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, *, causal: bool, window: Optional[int], scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel (three launches on PyTorch's current
-    stream): (dq, dk, dv) in q's dtype. Raises on a CPU tensor, on an input
-    it does not take, or if a launch fails."""
+    """Launch the backward kernel (``bwd_kernels(h, kv)`` launches on
+    PyTorch's current stream): (dq, dk, dv) in q's dtype. Raises on a CPU
+    tensor, on an input it does not take, or if a launch fails."""
     global bwd_launches
     _check(q, k, v, window)
     b, sq, h, d = q.shape
@@ -242,16 +335,19 @@ def flash_attention_bwd_kernel(
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # with GQA, the f32 partials of dK and dV of every query head
+    part = torch.empty((2, b, sk, h, d), dtype=torch.float32, device=q.device) if h != kv else None
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), None if part is None else part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, sk, h, kv, d, int(causal), -1 if window is None else int(window),
         float(scale), DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError("flash_attention backward kernel launch failed: "
                            f"{_error_string(err, 'flash_attention_bwd')}")
-    bwd_launches += BWD_KERNELS
+    bwd_launches += bwd_kernels(h, kv)
     return dq, dk, dv
 
 

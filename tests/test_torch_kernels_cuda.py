@@ -32,8 +32,11 @@ attention heads (head_dim 32) on the card against the CPU; and the MoE
 block (f32) on the card against the CPU and bitwise from call to call.
 The flash-attention backward kernel (training) is held against its plain
 version at every head_dim, lengths at the tiles' edges (1, 63, 64, 65,
-200), GQA groups 1 and 4, with and without a window and with Sq < Sk
-(float32 2e-5, bfloat16 2e-2), and to bitwise repeatability; the forward's
+127, 128, 129, 200), GQA groups 1, 2, 4 and 7, with and without a window
+and with Sq < Sk (float32 2e-5, bfloat16 2e-2), and to bitwise
+repeatability at GQA groups 1 and 7; nvcc's report must show no spill in
+any of its instantiations, and the SASS of its bf16 dK/dV and dQ kernels
+must hold tensor-core (HMMA) instructions; the forward's
 log-sum-exp output against the plain LSE, with o unchanged bit for bit;
 autograd through ops.flash_attention on the card against autograd over the
 oracle; and ops.ssd_scan under autograd on the card must raise.
@@ -42,6 +45,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -216,8 +220,8 @@ def test_c_entries_refuse_a_head_dim_they_are_not_built_for(cuda_device):
     p = buf.data_ptr()
     st = torch.cuda.current_stream(cuda_device).cuda_stream
     assert fa._kernel()(p, p, p, p, None, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1, st) == 1
-    assert fa._bwd_kernel()(p, p, p, p, p, p, p, p, p, p, 1, 8, 8, 4, 2, 48, 1, -1, 1.0, 1,
-                            st) == 1
+    assert fa._bwd_kernel()(p, p, p, p, p, p, p, p, p, p, p, 1, 8, 8, 4, 2, 48, 1, -1, 1.0,
+                            1, st) == 1
     assert da._kernel()(p, p, p, p, p, p, p, 1, 64, 4, 2, 48, -1, 1.0, 1, 1, 64, st) == 1
     assert da._partials_kernel()(p, p, p, p, p, p, p, p, p, 1, 64, 64 * 2 * 48, 4, 2, 48, -1,
                                  1.0, 1, 1, 64, st) == 1
@@ -528,7 +532,7 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda_device, experts, top_k, cf):
 
 # ---- the flash-attention backward (training) ------------------------------
 
-BWD_LENGTHS = [1, 63, 64, 65, 200]   # on and around the 32-row and 64-row tiles
+BWD_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 200]   # on and around the 64-row tiles
 
 
 def _bwd_inputs(rng, b, sq, sk, h, kv, d, dtype, device, window):
@@ -544,14 +548,16 @@ def _bwd_inputs(rng, b, sq, sk, h, kv, d, dtype, device, window):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("sq", BWD_LENGTHS)
 @pytest.mark.parametrize("window", [None, 48])
-@pytest.mark.parametrize("grp", [1, 4])
+@pytest.mark.parametrize("grp", [1, 2, 4, 7])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(cuda_device, d, sq, window, grp, dtype):
     """dQ, dK, dV of the backward kernel against flash_attention_bwd_plain on
     the same (q, k, v, o, lse, dO), at every head_dim the kernel is built
-    for, lengths at the tiles' edges, GQA groups 1 and 4, with and without
+    for, lengths at the tiles' edges, GQA groups 1, 2, 4 and 7 (with grp >
+    1 through the per-query-head partials and their sum), with and without
     a window; float32 at 2e-5, bfloat16 at 2e-2 (both sum in fp32 in
-    another order and round the outputs once)."""
+    another order and round the outputs once; bf16 also rounds P and dS as
+    mma operands)."""
     rng = np.random.default_rng(30)
     kw = dict(causal=True, window=window, scale=d ** -0.5)
     q, k, v, do, o, lse = _bwd_inputs(rng, 2, sq, sq, 2 * grp, 2, d, dtype, cuda_device, window)
@@ -605,12 +611,14 @@ def test_flash_forward_lse(cuda_device, d, dtype, window):
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_kernel_is_bitwise_repeatable(cuda_device, d, dtype):
-    """No atomics: the GQA sum over a kv head's query heads runs in a fixed
-    order, so two calls are bitwise equal."""
+@pytest.mark.parametrize("h,kv", [(28, 4), (8, 8)])
+def test_flash_bwd_kernel_is_bitwise_repeatable(cuda_device, d, dtype, h, kv):
+    """No atomics: every output element is summed in one fixed order (the
+    GQA sum over a kv head's query heads in the order g = 0 .. grp - 1), so
+    two calls are bitwise equal, with grp 7 and grp 1."""
     rng = np.random.default_rng(33)
     kw = dict(causal=True, window=100, scale=d ** -0.5)
-    q, k, v, do, o, lse = _bwd_inputs(rng, 2, 300, 300, 28, 4, d, dtype, cuda_device, 100)
+    q, k, v, do, o, lse = _bwd_inputs(rng, 2, 300, 300, h, kv, d, dtype, cuda_device, 100)
     first = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
     second = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
@@ -620,7 +628,7 @@ def test_flash_bwd_kernel_is_bitwise_repeatable(cuda_device, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_fn_grads_match_autograd_over_the_oracle(cuda_device, d, dtype):
     """ops.flash_attention under autograd on the card runs FlashAttentionFn
-    (one forward launch, and one backward call of three launches); its
+    (one forward launch, and one backward call of four launches at grp 4); its
     gradients agree with autograd over impl='ref' (f32 at 1e-4: the oracle
     materializes S and sums in another order; bf16 at 2e-2 against the
     oracle in f32 on the same bf16 inputs, rounded once)."""
@@ -632,7 +640,7 @@ def test_flash_attention_fn_grads_match_autograd_over_the_oracle(cuda_device, d,
     fwd0, bwd0 = fa.launches, fa.bwd_launches
     out = ops.flash_attention(*leaves, window=64)
     got = torch.autograd.grad(out, leaves, do)
-    assert (fa.launches - fwd0, fa.bwd_launches - bwd0) == (1, fa.BWD_KERNELS)
+    assert (fa.launches - fwd0, fa.bwd_launches - bwd0) == (1, fa.bwd_kernels(h, kv))
     ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
     ref_out = ops.flash_attention(*ref_leaves, window=64, impl="ref")
     want = torch.autograd.grad(ref_out, ref_leaves, do.float())
@@ -642,7 +650,27 @@ def test_flash_attention_fn_grads_match_autograd_over_the_oracle(cuda_device, d,
         torch.testing.assert_close(g.float(), w, atol=tol, rtol=tol)
     with torch.no_grad():
         ops.flash_attention(*leaves, window=64)
-    assert fa.bwd_launches - bwd0 == fa.BWD_KERNELS
+    assert fa.bwd_launches - bwd0 == fa.bwd_kernels(h, kv)
+
+
+def test_flash_bwd_kernel_spills_nothing(cuda_device):
+    """nvcc's -Xptxas -v report on csrc/flash_attention_bwd.cu: every kernel
+    instantiation (both dtypes, every head_dim) spills no bytes."""
+    report = _build.ptxas_report(_build.build(("flash_attention_bwd",))["flash_attention_bwd"])
+    names = [r["fn"] for r in report]
+    for kind in ("dkdv_bf16", "dq_bf16", "dkdv_f32", "dq_f32"):
+        assert sum(kind in n for n in names) == len(HEAD_DIMS), names
+    assert all(r.get("spill_bytes", 0) == 0 for r in report), report
+
+
+def test_flash_bwd_bf16_kernels_run_on_the_tensor_cores(cuda_device):
+    """cuobjdump -sass of the built library: the bf16 dK/dV and dQ kernels
+    at every head_dim hold HMMA instructions."""
+    _build.build(("flash_attention_bwd",))
+    hmma = _build.sass_hmma(_build.library_path("flash_attention_bwd"))
+    assert hmma is not None, "the toolkit has no cuobjdump"
+    bf16 = {fn: n for fn, n in hmma.items() if "dkdv_bf16" in fn or "dq_bf16" in fn}
+    assert len(bf16) == 2 * len(HEAD_DIMS) and all(n > 0 for n in bf16.values()), hmma
 
 
 def test_ssd_scan_under_grad_raises_on_the_card(cuda_device):
