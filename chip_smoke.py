@@ -8,11 +8,11 @@ Phases, one line of output each (or more):
      hand-written CUDA kernels from src/repro_torch/kernels/csrc, with
      ptxas's registers, spills and shared memory per kernel instantiation
      and, where the toolkit has cuobjdump, the tensor-core (HMMA)
-     instructions in each kernel's SASS (the SSD scan and the flash
-     backward must spill nothing, and the SSD scan's bf16 instantiations
-     and the flash backward's bf16 dK/dV and dQ kernels must have HMMA;
-     one line gives each backward instantiation's registers, spills and
-     HMMA count);
+     instructions in each kernel's SASS (the SSD scan, the flash backward
+     and the SSD backward must spill nothing, and the SSD scan's bf16
+     instantiations, the flash backward's bf16 dK/dV and dQ kernels and
+     the SSD backward's bf16 kernels must have HMMA; one line for each
+     backward gives its instantiations' registers, spills and HMMA count);
   2. each kernel against its plain PyTorch version (attention: bf16 at
      2e-2, f32 at 2e-5; the SSD scan: bf16 at 2e-2, f32 at 3e-4) at the
      serving paths' shapes and at long shapes (for the SSD scan also a chain
@@ -33,7 +33,16 @@ Phases, one line of output each (or more):
      heads over 24 of 64), qwen2-7b at S = 2048 causal and under a window of
      1024, zamba2-1.2b's shared attention at S = 2048 and reduced
      granite-8b's training step (head_dim 32), timed beside SDPA's forward +
-     backward through autograd;
+     backward through autograd; and the SSD backward kernel (training)
+     against ssd_scan_bwd_plain on the forward kernel's chunk states (every
+     gradient, bf16 2e-2, f32 3e-4, each also times the gradient's largest
+     magnitude as atol), bitwise from call to call, with the forward's y and
+     final state unchanged bit for bit by writing those states, at the three
+     built (P, N, chunk) with ragged chunks, two groups, h0 and d(final),
+     mamba2-2.7b at S = 2048, phase T's steps (4 x 512 tokens at 80 heads,
+     N = 128, and 64 heads, N = 64) and the reduced run's (8 x 64), timed
+     beside its bound, the plain backward and, for reference only, autograd
+     over ssd_scan_plain;
   3. each serving path at full width (bf16, random weights from a seed)
      through the speculative agent loop, speculation off then on, with the
      kernels' launch counts over that run and the profiles of a batched
@@ -79,9 +88,18 @@ Phases, one line of output each (or more):
      that step's gradients through the kernels against those through the
      oracle attention (``TRAIN_BOUND``), and a control, the backward kernel
      fed a zero o (so delta = rowsum(dO o) = 0), which must fall outside
-     that bound; ssd_scan under autograd on the card must raise; then
-     reduced granite-8b trained 100 steps on the card, whose loss must drop
-     by more than 0.5;
+     that bound; then full-width mamba2-2.7b (64 layers, 2.83 B params) and
+     zamba2-1.2b (38 Mamba2 layers and 6 applications of a shared attention
+     block) for 3 steps of 4 x 512 tokens each through SsdScanFn (the SSD
+     forward 2 launches a layer, remat; the backward BWD_KERNELS a layer;
+     the hybrid's attention 1 flash forward and one backward call an
+     application), each step's loss, grad norm and wall, the peak memory,
+     one step under torch.profiler, that step's gradients against the
+     oracle path (the sequential SSD recurrence) within TRAIN_BOUND, and a
+     control, the SSD backward without the decays' cotangent, whose A_log
+     and w_dt leaves must fall outside it; no SSM checkpoint is written;
+     then reduced mamba2-2.7b and reduced granite-8b trained 100 steps each
+     on the card, whose losses must drop by more than 0.5;
   R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
      none of the kernels (their counts must stay 0): (a) the speculative-
      serving demos of launch/speculative_serving.py with their asserts;
@@ -93,8 +111,9 @@ Phases, one line of output each (or more):
      pass at K = 12, 96, 768 and 3072 candidates: ``admit_beam`` on the
      card (host wall, and device time and launches from torch.profiler),
      ``_admit_numpy`` on the host and ``score_beam`` per call;
-  5. one JSON line on the kernels (the backward kernel with phase T's
-     launches); last, one JSON line on the device.
+  5. one JSON line on the kernels, six of them (the backward kernels with
+     phase T's launches, the forward kernels with their training launches
+     beside the serving counts); last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -116,13 +135,19 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense: t
 PEAK_BYTES = 3.35e12                                            # H100 SXM HBM3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-4}  # tests/test_kernels.py's SSD tolerance
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
 L2_FLUSH_BYTES = 128 << 20      # larger than the 50 MB L2: each timed call starts cold
 # phase T: one full-width bf16 training step through the kernels against the
-# same step through the oracle attention (attn_impl="ref", which rounds its
-# scores to bf16): relative loss and grad-norm gaps, and per wq/wk/wv leaf the
-# max |difference| over max |oracle| and the cosine. Each limit is 2-6x the
-# largest sound reading on an H100 (loss 1.7e-5, grad norm 5.0e-4, leaf 0.045,
-# cosine 0.9986); a backward without delta must fall outside it (PERF.md)
+# same step through the oracle path (attn_impl="ref": the materialized
+# attention, which rounds its scores to bf16, and the sequential SSD
+# recurrence): relative loss and grad-norm gaps, and per leaf (wq/wk/wv; the
+# Mamba2 layers' w_x, w_B, w_C, w_dt, A_log, D) the max |difference| over max
+# |oracle| and the cosine. Each limit is 2-6x the largest sound reading of
+# musicgen-medium on an H100 (loss 1.7e-5, grad norm 5.0e-4, leaf 0.045,
+# cosine 0.9986); a backward without delta must fall outside it (PERF.md).
+# At mamba2-2.7b's depth the forward's own bf16 noise exceeds the loss limit
+# (an f32 chunked SSD misses it against the oracle too), and there the
+# kernels' loss is held to it against that f32 path (ssm_training)
 TRAIN_BOUND = {"loss": 1e-4, "grad_norm": 2e-3, "leaf_rel": 0.1, "leaf_cos": 0.995}
 
 
@@ -415,6 +440,95 @@ def ssd_case(ops, gen, flush, b, s, h, p, g, n, dtype, with_h0, timed, chunk=128
     case["ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="kernel", **kw), iters, flush)
     case["plain_ms"] = _time_ms(lambda: ops.ssd_scan(*args, impl="plain", **kw), iters, flush)
     case["library_ms"] = None   # no single PyTorch call computes the SSD scan
+    return case
+
+
+def _check_grads(name, got, want, dtype):
+    """Each SSD gradient against the plain backward's: within SSD_TOL of the
+    reference (rtol) and SSD_TOL times its largest magnitude (atol), since
+    ddt and dA sum terms of hundreds that cancel. Returns the largest
+    |difference| and that over the reference's largest magnitude, per
+    output."""
+    tol, errs = SSD_TOL[dtype], {}
+    for g_name, g, w in zip(SSD_GRADS, got, want, strict=True):
+        g, w = g.float(), w.float()
+        scale = w.abs().max().item()
+        assert g.dtype == w.dtype and g.shape == w.shape, (name, g_name)
+        if not (torch.isfinite(g).all() and torch.allclose(g, w, atol=tol * scale, rtol=tol)):
+            raise AssertionError(f"{name} {g_name}: kernel and plain version disagree, max abs "
+                                 f"err {(g - w).abs().max().item()} at scale {scale}")
+        err = (g - w).abs().max().item()
+        errs[g_name] = [err, err / max(scale, 1e-30)]
+    return errs
+
+
+def ssd_bwd_case(ssd, gen, flush, b, s, h, p, g, n, chunk, dtype, with_h0, with_dfinal):
+    """The SSD backward kernel against ssd_scan_bwd_plain on the same inputs
+    and chunk states (the forward kernel's, written with
+    ``return_chunk_states``; the forward's y and final state must be the same
+    bit for bit as without them, and the chunk states agree with the plain
+    version's); bitwise from call to call. Timed cold: the backward kernel
+    (ms, both launches), the plain backward (plain_ms) and, for reference
+    only, autograd over ssd_scan_plain (autograd_ms, forward included). The
+    bound counts, per chunk of q valid rows, the causal pairs' products
+    (C B^T once per group; dy x^T, M^T dy, dG B and dG^T C per head: 2 N + 4
+    P + 4 N operations a pair and head) and the state terms (u, h_c^T dy, gn
+    B and gn^T x: 8 q P N a head), and its bytes: x, dt, A, B, C, D, the
+    chunk states, dy and d(final) read once, the seven gradients written
+    once. No single PyTorch call computes this backward (library_ms None)."""
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = torch.empty((b, s, h), device="cuda").uniform_(0.001, 0.1, generator=gen)
+    A = -torch.empty((h,), device="cuda").uniform_(1.0, 16.0, generator=gen)
+    B = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    D = torch.randn((h,), generator=gen, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_h0 else None
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    df = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_dfinal else None
+    args = (x, dt, A, B, C, D)
+    name = f"ssd_scan_bwd {[b, s, h, p, g, n]} chunk {chunk} h0 {with_h0} dfinal {with_dfinal}"
+    y, final = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0)
+    y_t, final_t, h_in = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0,
+                                             return_chunk_states=True)
+    _, _, h_in_plain = ssd.ssd_scan_plain(*args, chunk=chunk, initial_state=h0,
+                                          return_chunk_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_t) and torch.equal(final, final_t), \
+        f"{name}: the forward's y or final state changes when it writes the chunk states"
+    h_in_err = _check(f"{name} chunk states", h_in, h_in_plain, dtype, SSD_TOL)
+    got = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=chunk)
+    want = ssd.ssd_scan_bwd_plain(*args, h_in, dy, df, chunk=chunk)
+    torch.cuda.synchronize()
+    again = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=chunk)
+    assert all(torch.equal(a, c) for a, c in zip(again, got, strict=True)), \
+        f"{name}: two calls differ"
+    errs = _check_grads(name, got, want, dtype)
+    case = {"shape": [b, s, h, p, g, n], "chunk": chunk, "dtype": str(dtype).split(".")[1],
+            "h0": with_h0, "dfinal": with_dfinal, "chunk_states_err": h_in_err,
+            "err_abs_rel": errs, "max_abs_err": max(e[0] for e in errs.values())}
+    rows = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = [q * (q + 1) // 2 for q in rows]
+    flops = b * sum(2 * pr * n * g + h * pr * (4 * p + 4 * n) + 8 * h * q * p * n
+                    for q, pr in zip(rows, pairs, strict=True))
+    n_bytes = _nbytes(*args, h_in, dy, *got) + sum(_nbytes(t) for t in (h0, df) if t is not None)
+    case["bound_ms"], case["bound_by"] = _bound(n_bytes, flops, dtype)
+    leaves = [t.detach().requires_grad_() for t in args]
+    h0_leaf = None if h0 is None else h0.detach().requires_grad_()
+
+    def autograd_plain():
+        yp, fp = ssd.ssd_scan_plain(*leaves, chunk=chunk, initial_state=h0_leaf)
+        outs, cots = [yp], [dy]
+        if df is not None:
+            outs, cots = outs + [fp], cots + [df]
+        return torch.autograd.grad(outs, leaves + ([h0_leaf] if h0 is not None else []), cots)
+
+    iters = 5 if b * s * h >= 100_000 else 20
+    case["ms"] = _time_ms(lambda: ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=chunk),
+                          iters, flush)
+    case["plain_ms"] = _time_ms(lambda: ssd.ssd_scan_bwd_plain(*args, h_in, dy, df, chunk=chunk),
+                                iters, flush)
+    case["autograd_ms"] = _time_ms(autograd_plain, iters, flush)
+    case["library_ms"] = None   # no single PyTorch call computes the SSD backward
     return case
 
 
@@ -938,16 +1052,18 @@ def kernel_counters():
     from repro_torch.kernels import ssd_scan as ssd
     return {"flash_attention": (fa, "launches"), "decode_attention": (da, "launches"),
             "decode_attention_partials": (da, "partials_launches"),
-            "ssd_scan": (ssd, "launches"), "flash_attention_bwd": (fa, "bwd_launches")}
+            "ssd_scan": (ssd, "launches"), "flash_attention_bwd": (fa, "bwd_launches"),
+            "ssd_scan_bwd": (ssd, "bwd_launches")}
 
 
 def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, restart_at=2):
     """Phase T: full-width musicgen-medium trained on the card through the
     port's training driver (flash forward and backward kernels on the
     path), stopped and resumed from a checkpoint, profiled over one step and
-    held against the oracle attention path; then reduced granite-8b trained
-    100 steps, which must learn. Records the training path's launch counts
-    in ``launches``."""
+    held against the oracle attention path; then full-width mamba2-2.7b and
+    zamba2-1.2b (``ssm_training``); then reduced mamba2-2.7b and granite-8b
+    trained 100 steps each, which must learn. Records the training paths'
+    launch counts in ``launches``."""
     counters = kernel_counters() if counters is None else counters
     launches = {} if launches is None else launches
     import tempfile
@@ -958,7 +1074,6 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import train
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import steps as steps_mod
@@ -994,7 +1109,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
                   f"(state {state_gb:.3f} GB); launches {counts}", flush=True)
             assert counts["flash_attention"] == 2 * cfg.n_layers * steps, counts  # remat: twice
             assert counts["flash_attention_bwd"] == bwd_per_call * cfg.n_layers * steps, counts
-            assert counts["ssd_scan"] == counts["decode_attention"] == 0, counts
+            assert counts["ssd_scan"] == counts["ssd_scan_bwd"] == counts["decode_attention"] == 0
             assert counts["decode_attention_partials"] == 0, counts
             assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in record)
             launches["flash_attention_bwd"] = counts["flash_attention_bwd"]
@@ -1108,15 +1223,25 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     del params, opt_state, g_k, g_r, g_c
     torch.cuda.empty_cache()
 
-    # the SSD kernel has no backward yet: under autograd on the card it raises
-    x = torch.randn((1, 19, 8, 32), device="cuda", requires_grad=True)
-    bc = torch.randn((1, 19, 1, 16), device="cuda")
-    try:
-        ops.ssd_scan(x, torch.full((1, 19, 8), 0.1, device="cuda"), -torch.ones(8, device="cuda"),
-                     bc, bc, torch.ones(8, device="cuda"), chunk=32)
-        raise AssertionError("ssd_scan under autograd on the card returned an output")
-    except NotImplementedError as err:
-        print(f"phase T ssd_scan under autograd on the card raises: {err}", flush=True)
+    # the Mamba2 and hybrid families at full width, through SsdScanFn
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        ssm_training(arch, counters, launches)
+
+    # reduced mamba2-2.7b, 100 steps (P 32, N 16, chunk 32 at seq 64: two chunks)
+    from repro_torch.kernels import ssd_scan as ssd
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.time()
+    _, _, losses = train("mamba2-2.7b", reduced=True, steps=100, seq_len=64, global_batch=8,
+                         lr=3e-3, device="cuda", log_every=0)
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"phase T mamba2-2.7b reduced, 100 steps: loss {losses[0]!r} -> {losses[-1]!r} in "
+          f"{time.time() - t0:.1f} s; launches {counts}", flush=True)
+    assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
+    small = get_config("mamba2-2.7b").reduced()
+    assert not small.remat and counts["ssd_scan"] == small.n_layers * 100, counts
+    assert counts["ssd_scan_bwd"] == ssd.BWD_KERNELS * small.n_layers * 100, counts
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 0, counts
 
     # reduced granite-8b, 100 steps: the twin of test_training_reduces_loss
     for mod, attr in counters.values():
@@ -1132,6 +1257,185 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     assert counts["flash_attention"] == small.n_layers * 100, counts
     assert counts["flash_attention_bwd"] == fa.bwd_kernels(
         small.eff_n_heads, small.eff_n_kv_heads) * small.n_layers * 100, counts
+
+
+def _loss_with_plain_ssd(steps_mod, params, cfg, batch):
+    """The loss of ``batch`` with every SSD scan through ssd_scan_plain."""
+    from repro_torch.kernels import ops
+    real = ops.ssd_scan
+    ops.ssd_scan = lambda *a, **kw: real(*a, **{**kw, "impl": "plain"})
+    try:
+        with torch.no_grad():
+            return float(steps_mod.loss_fn(params, cfg, batch)[1]["loss"])
+    finally:
+        ops.ssd_scan = real
+
+
+def ssm_training(arch, counters, launches, steps=3, seq_len=512, batch=4):
+    """Full-width ``arch`` (mamba2-2.7b or zamba2-1.2b: remat, bf16, random
+    weights from seed 0) trained ``steps`` steps of batch x seq_len tokens
+    through launch/train.py: the SSD forward kernel twice a layer (remat)
+    and its backward once through SsdScanFn, and for the hybrid's shared
+    attention (not remat'd) the flash kernels; each step's loss, grad norm
+    and wall, the peak device memory against the training state, one more
+    step timed on the host's clock and the next under torch.profiler. Then,
+    with the optimizer state freed, that step's gradients through the
+    kernels against the oracle path (attn_impl="ref": the sequential SSD
+    recurrence and the materialized attention) within ``TRAIN_BOUND``, on
+    the w_x, w_B, w_C, w_dt, A_log and D leaves of layers 0, n / 2 and n - 1
+    (and the hybrid's shared wq, wk, wv), the loss's noise floor beside it
+    (the same forward with the SSD through ssd_scan_plain: where that misses
+    the loss limit against the oracle too, the kernels' loss is held to the
+    limit against the plain path); and a control, the backward kernel
+    with the decays' cotangent dropped (dcs = 0), whose A_log and w_dt leaves
+    must fall outside the bound. No checkpoint is written."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    cfg = get_config(arch)
+    n_attn = sum(M._shared_attn_index(cfg, i) is not None for i in range(cfg.n_layers)) \
+        if cfg.family == "hybrid" else 0
+    state_gb = cfg.n_params() * 12 / 1e9
+    print(f"phase T {arch}: {cfg.n_layers} Mamba2 layers, {n_attn} shared attention "
+          f"applications, d_model {cfg.d_model}, {cfg.n_params() / 1e9:.3f} B params, remat "
+          f"{cfg.remat}; params and grads bf16, m and v f32: {state_gb:.3f} GB of training state",
+          flush=True)
+    record = []
+    real = _recording_steps(steps_mod, record)
+    try:
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params, opt_state, _ = train(arch, reduced=False, steps=steps, seq_len=seq_len,
+                                     global_batch=batch, device="cuda", log_every=1)
+        wall = time.time() - t0
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    finally:
+        steps_mod.train_step = real
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for i, r in enumerate(record):
+        print(f"phase T {arch} step {i}: {json.dumps(r)}", flush=True)
+    print(f"phase T {arch} {steps} steps of {batch} x {seq_len} tokens: {wall:.1f} s wall; peak "
+          f"device memory {peak:.3f} GB (state {state_gb:.3f} GB); launches {counts}", flush=True)
+    assert cfg.remat and len(record) == steps
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in record), record
+    assert counts["ssd_scan"] == 2 * cfg.n_layers * steps, counts            # remat: twice
+    assert counts["ssd_scan_bwd"] == ssd.BWD_KERNELS * cfg.n_layers * steps, counts
+    assert counts["flash_attention"] == n_attn * steps, counts               # not remat'd
+    assert counts["flash_attention_bwd"] == fa.bwd_kernels(
+        cfg.eff_n_heads, cfg.eff_n_kv_heads) * n_attn * steps, counts
+    assert counts["decode_attention"] == counts["decode_attention_partials"] == 0, counts
+    launches["ssd_scan_bwd"] = launches.get("ssd_scan_bwd", 0) + counts["ssd_scan_bwd"]
+    launches["ssd_scan_train"] = launches.get("ssd_scan_train", 0) + counts["ssd_scan"]
+
+    dc = DataConfig(seed=0, seq_len=seq_len + 1, global_batch=batch)
+    tbatch = [{k: torch.from_numpy(v).cuda() for k, v in batch_at(cfg, dc, i).items()}
+              for i in (steps, steps + 1)]
+    oc = opt_mod.AdamWConfig(lr=3e-4, total_steps=max(steps, 10), warmup_steps=max(2, steps // 10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, _ = steps_mod.train_step(params, opt_state, tbatch[0], cfg=cfg, opt_cfg=oc)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt_state, metrics = steps_mod.train_step(params, opt_state, tbatch[1], cfg=cfg,
+                                                          opt_cfg=oc)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    assert device_ms > 0, "the profiler recorded no device time"
+    row = {"loss": float(metrics["loss"]), "device_ms": device_ms,
+           "kernels": sum(e.count for e in kernels), "wall_ms": wall_ms,
+           "busy": device_ms / wall_ms}
+    named = [("ssd_fwd", "ssd_scan_kernel", 2 * cfg.n_layers),
+             ("ssd_bwd", "ssd_bwd_", ssd.BWD_KERNELS * cfg.n_layers)]
+    if n_attn:
+        named += [("flash_fwd", "flash_attention_bf16_kernel", n_attn),
+                  ("flash_bwd", "flash_bwd_", fa.bwd_kernels(cfg.eff_n_heads,
+                                                             cfg.eff_n_kv_heads) * n_attn)]
+    for label, symbol, want in named:
+        mine = [e for e in kernels if symbol in e.key]
+        row[f"{label}_ms"] = sum(e.self_device_time_total for e in mine) / 1e3
+        row[f"{label}_share"] = row[f"{label}_ms"] / device_ms
+        row[f"{label}_launches"] = sum(e.count for e in mine)
+        assert row[f"{label}_launches"] == want, (label, row)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    row["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]
+    print(f"phase T {arch} one step (wall from the step before, device from torch.profiler): "
+          f"{json.dumps(row)}", flush=True)
+
+    # the same step's gradients through the kernels and through the oracle,
+    # with the optimizer state freed for the oracle's saved recurrence
+    del opt_state
+    torch.cuda.empty_cache()
+    check = tbatch[1]
+    layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+
+    def leaves(grads):
+        out = {f"{w}[{i}]": grads["blocks"][i]["ssm"][w] for i in layers
+               for w in ("w_x", "w_B", "w_C", "w_dt", "A_log", "D")}
+        if n_attn:
+            out.update({f"shared {w}": grads["shared_attn"]["attn"][w] for w in ("wq", "wk", "wv")})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _, m_k, g_k = steps_mod.loss_and_grads(params, cfg, check)
+    lv_k = leaves(g_k)
+    n_k, loss_k = opt_mod.global_norm(g_k).item(), float(m_k["loss"])
+    del g_k
+    t0 = time.time()
+    _, m_r, g_r = steps_mod.loss_and_grads(params, dataclasses.replace(cfg, attn_impl="ref"), check)
+    oracle_s = time.time() - t0
+    lv_r = leaves(g_r)
+    n_r, loss_r = opt_mod.global_norm(g_r).item(), float(m_r["loss"])
+    del g_r
+    agree = {key: _grad_agreement(lv_k[key], lv_r[key]) for key in lv_k}
+    # the loss reading's noise floor: the same forward with the SSD through
+    # ssd_scan_plain (f32 chunked, independent of the kernels); where it too
+    # misses the loss limit against the oracle, the kernels' loss is held to
+    # that limit against it instead (PERF.md, Findings)
+    loss_p = _loss_with_plain_ssd(steps_mod, params, cfg, check)
+    floor, vs_plain = abs(loss_p - loss_r) / abs(loss_r), abs(loss_k - loss_p) / abs(loss_p)
+    print(f"phase T {arch} one step, kernels against the oracle path (attn_impl='ref', "
+          f"{oracle_s:.1f} s, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB): loss "
+          f"{loss_k!r} / {loss_r!r}, grad_norm {n_k!r} / {n_r!r}; per leaf (max |diff| / max "
+          f"|ref|, cosine): {json.dumps(agree)}; loss with the plain f32 SSD {loss_p!r}: against "
+          f"the oracle {floor!r}, the kernels against it {vs_plain!r}", flush=True)
+    misses = _train_bound_misses(loss_k, loss_r, n_k, n_r, agree)
+    if floor > TRAIN_BOUND["loss"] and vs_plain <= TRAIN_BOUND["loss"]:
+        misses = [m for m in misses if m[0] != "loss"]
+    assert not misses, misses
+
+    # the control: the backward kernel with the decays' cotangent dropped
+    real_bwd = ssd.ssd_scan_bwd_kernel
+    ssd.ssd_scan_bwd_kernel = lambda *a, **kw: real_bwd(*a, **kw, drop_decay_grad=True)
+    try:
+        _, m_c, g_c = steps_mod.loss_and_grads(params, cfg, check)
+    finally:
+        ssd.ssd_scan_bwd_kernel = real_bwd
+    lv_c = leaves(g_c)
+    n_c, loss_c = opt_mod.global_norm(g_c).item(), float(m_c["loss"])
+    del g_c
+    agree_c = {key: _grad_agreement(lv_c[key], lv_r[key]) for key in lv_c}
+    misses = _train_bound_misses(loss_c, loss_r, n_c, n_r, agree_c)
+    print(f"phase T {arch} control, the backward without the decays' cotangent, against the "
+          f"oracle path: loss {loss_c!r}, grad_norm {n_c!r}; per leaf {json.dumps(agree_c)}; "
+          f"outside TRAIN_BOUND: {json.dumps(misses)}", flush=True)
+    missed = {m[0].split(" ")[0] for m in misses}
+    assert all(f"{w}[{i}]" in missed for i in layers for w in ("A_log", "w_dt")), \
+        f"the backward without the decays' cotangent passed TRAIN_BOUND on A_log or w_dt: {misses}"
+    del params, lv_k, lv_r, lv_c
+    torch.cuda.empty_cache()
 
 
 def runtime_phase(device="cuda"):
@@ -1240,6 +1544,7 @@ def main():
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.mesh import make_local_mesh, mesh_axes, mesh_counts
     from repro_torch.launch.serve import serve_agent_loop
     from repro_torch.models import model as M
@@ -1275,6 +1580,14 @@ def main():
             tc = {fn: n for fn, n in (hmma or {}).items() if "dkdv_bf16" in fn or "dq_bf16" in fn}
             assert hmma is None or (len(tc) == 2 * len(_build.ATTENTION_HEAD_DIMS)
                                     and all(tc.values())), hmma
+        if name == "ssd_scan_bwd":
+            rows = [[r["fn"], r.get("registers"), r.get("spill_bytes", 0),
+                     None if hmma is None else hmma.get(r["fn"])] for r in report]
+            print(f"phase 1 ssd_scan_bwd instantiations [kernel, registers, spill bytes, HMMA]: "
+                  f"{json.dumps(rows)}", flush=True)
+            assert all(r.get("spill_bytes", 0) == 0 for r in report), report
+            tc = {fn: n for fn, n in (hmma or {}).items() if "ssd_bwd_kernel<__nv_bfloat16" in fn}
+            assert hmma is None or (len(tc) == len(ssd.SHAPES) and all(tc.values())), hmma
 
     # ---- phase 2: kernels against their plain versions ------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1361,6 +1674,26 @@ def main():
                                        (8, 64, 4, 2, 32, None)):
             cases["flash_attention_bwd"].append(
                 flash_bwd_case(ops, fa, gen, flush, b, s, h, kv, d, dtype, window))
+    # the SSD backward kernel (training): the three built (P, N, chunk) with
+    # a ragged last chunk, two groups, an initial state and a cotangent of the
+    # final state; mamba2-2.7b at S = 2048; phase T's full-width steps (4 x
+    # 512 tokens: mamba2-2.7b's 80 heads at N = 128, zamba2-1.2b's 64 at N =
+    # 64); the reduced configs' 100-step run (8 x 64, 4 heads, P 32, N 16,
+    # chunk 32). A generator of their own, so that the cases above keep
+    # their inputs
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases["ssd_scan_bwd"] = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, s, h, p, g, n, chunk, with_h0, with_df in (
+                (2, 300, 8, 64, 2, 128, 128, True, True),
+                (2, 300, 8, 64, 1, 64, 128, True, False),
+                (2, 70, 8, 32, 2, 16, 32, False, True),
+                (1, 2048, 80, 64, 1, 128, 128, False, False),
+                (4, 512, 80, 64, 1, 128, 128, False, False),
+                (4, 512, 64, 64, 1, 64, 128, False, False),
+                (8, 64, 4, 32, 1, 16, 32, False, False)):
+            cases["ssd_scan_bwd"].append(ssd_bwd_case(ssd, gen, flush, b, s, h, p, g, n, chunk,
+                                                      dtype, with_h0, with_df))
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)
@@ -1521,7 +1854,8 @@ def main():
         if arch_cfg.family != "ssm":
             assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
 
-    # ---- phase T: training at full width (musicgen-medium), then reduced --
+    # ---- phase T: training at full width (musicgen-medium, mamba2-2.7b,
+    # zamba2-1.2b), then reduced ----
     training_phase(counters, launches)
 
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
@@ -1553,6 +1887,11 @@ def main():
     source["flash_attention_bwd"] = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     # musicgen-medium's training step (phase T's main path)
     path_case["flash_attention_bwd"] = case_at("flash_attention_bwd", [4, 128, 24, 24, 64])
+    replaces["ssd_scan_bwd"] = ("jax.vjp of src/repro/kernels/ops.py::_jnp_ssd_chunked (no "
+                                "Pallas backward exists)")
+    source["ssd_scan_bwd"] = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+    # mamba2-2.7b's training step (phase T's full-width SSM path)
+    path_case["ssd_scan_bwd"] = case_at("ssd_scan_bwd", [4, 512, 80, 64, 1, 128])
     kernels = []
     for name in replaces:
         c = path_case[name]
@@ -1564,8 +1903,9 @@ def main():
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "at": {"shape": c["shape"], "dtype": c["dtype"]},
         })
-    # the forward kernel's launches on the training path (phase T), beside the serving count
+    # the forward kernels' launches on the training paths (phase T), beside the serving counts
     kernels[0]["training_launches"] = launches["flash_attention_train"]
+    kernels[3]["training_launches"] = launches["ssd_scan_train"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

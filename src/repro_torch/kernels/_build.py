@@ -26,7 +26,8 @@ from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
+           "ssd_scan_bwd")
 # The head_dims that csrc/flash_attention.cu, csrc/flash_attention_bwd.cu and
 # csrc/decode_attention.cu instantiate (their ``switch (d)``); the wrappers
 # check against this.

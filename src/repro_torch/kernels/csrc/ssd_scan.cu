@@ -69,6 +69,11 @@
 //   tiles (y warps 0 and 1 take one each, 2 and 3 idle), and at N = 16 the
 //   state is 2 x 2 tiles of 16 x 8, one per state warp, where from N = 32
 //   each state warp takes every row and a quarter of N.
+//   For training the launch may also write the state entering each chunk
+//   (h_in, (B, nc, H, P, N) f32): the state warps hold it (S_{c-1}, or h0 or
+//   zero at chunk 0) for their block's columns and store it when the pointer
+//   is not null; csrc/ssd_scan_bwd.cu reads it. Serving passes null, and y
+//   and the final state are the same bit for bit either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -353,7 +358,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dv,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hout,
-    int* __restrict__ sync, int Bsz, int S, int H, int G, int R) {
+    float* __restrict__ hin, int* __restrict__ sync, int Bsz, int S, int H, int G, int R) {
   static_assert(Q % 32 == 0 && Q <= 2 * NYW * 16 && P % PB == 0 && N % 16 == 0 && N <= 128);
   using L = Layout<T, Q, N>;
   constexpr int LDN = L::LDN, LDP = L::LDP;
@@ -561,6 +566,8 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
         else if (src != nullptr) v = *reinterpret_cast<const float2*>(src + p * N + n);
         prev[mt][nt][2 * hf] = v.x;
         prev[mt][nt][2 * hf + 1] = v.y;
+        if (hin != nullptr)  // the state entering chunk c, for the backward
+          store2(hin + (((long)b * nc + c) * H + h) * P * N + (long)(p0 + p) * N + n, v.x, v.y);
       }
   const float decay = expf(cs_last);
 #pragma unroll
@@ -598,8 +605,8 @@ __global__ void __launch_bounds__(NT, 2) ssd_scan_kernel(
 
 template <typename T, int Q, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* B, const void* C,
-           const void* D, const void* h0, void* y, void* hout, void* sync, int Bsz, int S,
-           int H, int G, cudaStream_t stream) {
+           const void* D, const void* h0, void* y, void* hout, void* hin, void* sync, int Bsz,
+           int S, int H, int G, cudaStream_t stream) {
   auto kernel = ssd_scan_kernel<T, Q, P, N>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T, Q, N>(Q, true).bytes);
@@ -614,26 +621,28 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(D),
       static_cast<const float*>(h0), static_cast<T*>(y), static_cast<float*>(hout),
-      static_cast<int*>(sync), Bsz, S, H, G, R);
+      static_cast<float*>(hin), static_cast<int*>(sync), Bsz, S, H, G, R);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int Q, int P, int N>
 int launch_dtype(int dtype, const void* x, const void* dt, const void* A, const void* B,
-                 const void* C, const void* D, const void* h0, void* y, void* hout, void* sync,
-                 int Bsz, int S, int H, int G, cudaStream_t stream) {
+                 const void* C, const void* D, const void* h0, void* y, void* hout, void* hin,
+                 void* sync, int Bsz, int S, int H, int G, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, sync, Bsz, S, H, G, stream);
+    return launch<float, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, hin, sync, Bsz, S, H, G,
+                                  stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, sync, Bsz, S, H, G,
-                                          stream);
+    return launch<__nv_bfloat16, Q, P, N>(x, dt, A, B, C, D, h0, y, hout, hin, sync, Bsz, S, H,
+                                          G, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm (B,S,G,N), D (H,) f32,
-// h0 (B,H,P,N) f32 or null, y (B,S,H,P), hout (B,H,P,N) f32; all contiguous,
+// h0 (B,H,P,N) f32 or null, y (B,S,H,P), hout (B,H,P,N) f32, hin (B,nc,H,P,N)
+// f32 (the state entering each chunk, nc = ceil(S / chunk)) or null; all contiguous,
 // x, Bm and Cm 16-byte aligned. sync: 1 + (P / 32) * B * H int32 zeros,
 // which the launch leaves zero (launches that share it run in one stream's
 // order). Built for (P, N, chunk) = (64, 128, 128) and (64, 64, 128), the
@@ -642,20 +651,20 @@ int launch_dtype(int dtype, const void* x, const void* dt, const void* A, const 
 // of the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* D, const void* h0, void* y,
-                            void* hout, void* sync, int Bsz, int S, int H, int Pdim, int G,
-                            int N, int chunk, int dtype, void* stream) {
+                            void* hout, void* hin, void* sync, int Bsz, int S, int H, int Pdim,
+                            int G, int N, int chunk, int dtype, void* stream) {
   if (Bsz <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Pdim == 64 && N == 128 && chunk == 128)
-    return launch_dtype<128, 64, 128>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
-                                      G, st);
+    return launch_dtype<128, 64, 128>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, hin, sync, Bsz,
+                                      S, H, G, st);
   if (Pdim == 64 && N == 64 && chunk == 128)
-    return launch_dtype<128, 64, 64>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
-                                     G, st);
+    return launch_dtype<128, 64, 64>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, hin, sync, Bsz,
+                                     S, H, G, st);
   if (Pdim == 32 && N == 16 && chunk == 32)
-    return launch_dtype<32, 32, 16>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, sync, Bsz, S, H,
-                                    G, st);
+    return launch_dtype<32, 32, 16>(dtype, x, dt, A, Bm, Cm, D, h0, y, hout, hin, sync, Bsz,
+                                    S, H, G, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

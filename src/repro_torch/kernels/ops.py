@@ -16,11 +16,18 @@ Under autograd (grad mode on and an input that requires grad):
              a CPU tensor 'auto' is the plain version, and autograd through
              it is the CPU training path. 'plain' and 'ref' are autograd
              through those versions on either device.
-  ssd_scan   on a CUDA tensor, 'auto' and 'kernel' raise
-             NotImplementedError: the SSD backward kernel is not written yet
-             (the next slice), and the kernel's output would be a leaf with
-             no gradient. On the CPU, autograd through the plain version.
-  decode     serving only; autograd through the kernels is not supported.
+  ssd_scan   on a CUDA tensor, 'auto' and 'kernel' run
+             ``ssd_scan.SsdScanFn``: the forward kernel, which also writes
+             the state entering each chunk, and the hand-written backward
+             kernel; with no grad the forward kernel runs alone, as in
+             serving. On a CPU tensor 'auto' is the plain version, and
+             autograd through it is the CPU training path. 'plain' and
+             'ref' are autograd through those versions on either device.
+  decode     serving only: the decode kernels have no backward (the
+             reference has none either), so on a CUDA tensor 'auto' and
+             'kernel' raise NotImplementedError under autograd instead of
+             returning an output with no history. 'plain' and 'ref' stay
+             differentiable on either device.
 
 Signatures and layouts follow ``repro.kernels.ops``: BSHD for prefill,
 q (B,H,D) against a (B,Smax,KV,D) cache (or a slice of one, for the
@@ -52,6 +59,13 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
 
 def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_decode_grad(name: str, q: torch.Tensor, *ts: torch.Tensor) -> None:
+    if q.is_cuda and _needs_grad(q, *ts):
+        raise NotImplementedError(
+            f"{name} is serving-only: its kernel has no backward, and its output would have "
+            "no gradient; under autograd on a CUDA tensor use impl='plain' or 'ref'")
 
 
 def flash_attention(
@@ -95,6 +109,7 @@ def decode_attention(
     if impl == "plain":
         return _da.decode_attention_plain(
             q, k_cache, v_cache, lengths, scale=scale, window=window)
+    _refuse_decode_grad("decode_attention", q, k_cache, v_cache)
     return _da.decode_attention_kernel(
         q, k_cache, v_cache, lengths, scale=scale, window=window)
 
@@ -124,6 +139,7 @@ def decode_attention_partials(
     if impl == "plain":
         return _da.decode_attention_partials_plain(
             q, k_cache, v_cache, lengths, scale=scale, window=window)
+    _refuse_decode_grad("decode_attention_partials", q, k_cache, v_cache)
     return _da.decode_attention_partials_kernel(
         q, k_cache, v_cache, lengths, scale=scale, window=window)
 
@@ -147,10 +163,7 @@ def ssd_scan(
     if impl == "plain":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
     if _needs_grad(x, dt, A, B, C, D, initial_state):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet (the next slice of the port: an SSD backward "
-            "kernel, then Mamba2 / hybrid training on the card); under autograd on a CUDA "
-            "tensor use impl='plain' or 'ref'")
+        return _ssd.SsdScanFn.apply(x, dt, A, B, C, D, initial_state, chunk)
     return _ssd.ssd_scan_kernel(x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
 
 

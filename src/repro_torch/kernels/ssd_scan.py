@@ -1,25 +1,38 @@
-"""Mamba2 SSD chunked scan: the hand-written CUDA kernel and its plain PyTorch version.
+"""Mamba2 SSD chunked scan: the hand-written CUDA kernels (forward and
+backward) and their plain PyTorch versions.
 
 ``ssd_scan_kernel`` launches ``csrc/ssd_scan.cu`` (the Hopper port of
 ``repro/kernels/ssd_scan.py::ssd_scan_pallas``; its source carries the
-design note). ``ssd_scan_plain`` is the same computation in PyTorch, the
-port of ``repro.kernels.ops._jnp_ssd_chunked``: per chunk the quadratic
-intra-chunk part and the chunk's end state, then a sequential pass of the
-state over chunks. The CPU tests run the plain version; on the card it is
-only the yardstick the kernel is held against.
+design note); with ``return_chunk_states`` it also returns the state
+entering each chunk. ``ssd_scan_bwd_kernel`` launches
+``csrc/ssd_scan_bwd.cu``, the backward (dx, ddt, dA, dB, dC, dD and dh0
+from dy, the cotangent of the final state and those chunk states; the JAX
+package has no Pallas backward and differentiates its jnp path).
+:class:`SsdScanFn` joins the two for autograd. ``ssd_scan_plain`` is the
+forward in PyTorch, the port of ``repro.kernels.ops._jnp_ssd_chunked``: per
+chunk the quadratic intra-chunk part and the chunk's end state, then a
+sequential pass of the state over chunks. ``ssd_scan_bwd_plain`` is the
+backward in PyTorch, written out from the chunk states with no autograd
+inside. The CPU tests run the plain versions; on the card they are only
+the yardsticks the kernels are held against.
 
 The kernel runs the chunks in parallel, a block per chunk and 32 head_dim
 columns, and passes the state from chunk to chunk in the same launch, in
 the order of the tickets its blocks draw (``ticket_block``);
 ``ssd_scan_chained_plain`` mirrors that algorithm, with the kernel's bf16
-rounding points, for the tests. The kernel is built for the (head_dim P,
+rounding points, for the tests; ``ssd_scan_bwd_tiled_plain`` mirrors the
+backward kernel's (a block per chunk, head and batch; the reverse chain in
+``bwd_ticket_block`` order; per-head partials of dB and dC and per-block
+partials of dA and dD, summed in index order). The kernels are built for
+the (head_dim P,
 d_state N, chunk) of ``SHAPES``: mamba2-2.7b's (64, 128, 128), zamba2-1.2b's
-(64, 64, 128) and both configs reduced, (32, 16, 32); it raises for any
+(64, 64, 128) and both configs reduced, (32, 16, 32); they raise for any
 other.
 
 Layout: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, B/C (B,S,G,N), D (H,) f32,
 optional initial state (B,H,P,N) f32 -> (y (B,S,H,P) in x's dtype,
-final state (B,H,P,N) f32). Head h reads group h // (H/G).
+final state (B,H,P,N) f32). Head h reads group h // (H/G). The chunk
+states are (B, nc, H, P, N) f32, nc = ceil(S / chunk).
 """
 from __future__ import annotations
 
@@ -36,7 +49,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((64, 128, 128), (64, 64, 128), (32, 16, 32))
 COLUMNS = 32           # head_dim columns per block of the kernel (PB in the source)
 
-launches = 0  # kernel launches made by ssd_scan_kernel; callers may reset it
+launches = 0      # kernel launches made by ssd_scan_kernel; callers may reset it
+bwd_launches = 0  # kernel launches made by ssd_scan_bwd_kernel; likewise
+BWD_KERNELS = 2   # launches a backward call makes: the chunks, then the fixed-order sums
 
 
 def ticket_block(ticket: int, h: int, b: int, p: int) -> Tuple[int, int, int, int]:
@@ -49,33 +64,42 @@ def ticket_block(ticket: int, h: int, b: int, p: int) -> Tuple[int, int, int, in
         ticket // halves // h % b
 
 
+def bwd_ticket_block(ticket: int, nc: int, h: int, b: int) -> Tuple[int, int, int]:
+    """(chunk, head, batch) of the backward block that draws ``ticket``:
+    reverse chunk-major, so every block of chunk c + 1 has drawn its ticket
+    (and runs) before any block of chunk c, which waits on it."""
+    return nc - 1 - ticket // (h * b), ticket % h, ticket // h % b
+
+
 def _bf16_pair(a: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """An f32 operand as the kernel's bf16 hi + lo pair, each back in f32."""
     hi = a.to(torch.bfloat16).float()
     return hi, (a - hi).to(torch.bfloat16).float()
 
 
+def _chunked(a: torch.Tensor, nc: int, chunk: int, *tail) -> torch.Tensor:
+    """(B, S, ...) zero-padded to nc chunks, float32, as (B, nc, chunk, *tail)."""
+    pad = nc * chunk - a.shape[1]
+    a = torch.nn.functional.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
+    return a.reshape(a.shape[0], nc, chunk, *tail)
+
+
 def ssd_scan_plain(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, D: torch.Tensor, *, chunk: int,
-    initial_state: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    initial_state: Optional[torch.Tensor] = None, return_chunk_states: bool = False,
+):
     """Chunked SSD in PyTorch, float32 throughout (heads grouped, never
-    repeated over a group)."""
+    repeated over a group). With ``return_chunk_states`` it also returns the
+    state entering each chunk, (B, nc, H, P, N) f32."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     r = h // g
     nc = -(-s // chunk)
-    pad = nc * chunk - s
-
-    def chunked(a, *tail):
-        a = torch.nn.functional.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
-        return a.reshape(b, nc, chunk, *tail)
-
-    xf = chunked(x, g, r, p)                              # (b,c,Q,g,r,p)
-    dtf = chunked(dt, g, r)                               # (b,c,Q,g,r)
-    Bf = chunked(B, g, n)                                 # (b,c,Q,g,n)
-    Cf = chunked(C, g, n)
+    xf = _chunked(x, nc, chunk, g, r, p)                  # (b,c,Q,g,r,p)
+    dtf = _chunked(dt, nc, chunk, g, r)                   # (b,c,Q,g,r)
+    Bf = _chunked(B, nc, chunk, g, n)                     # (b,c,Q,g,n)
+    Cf = _chunked(C, nc, chunk, g, n)
     cs = torch.cumsum(dtf * A.float().reshape(g, r), dim=2)   # inclusive, within chunk
     # --- intra-chunk (quadratic, attention-like) ---
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
@@ -99,7 +123,10 @@ def ssd_scan_plain(
     h_in = torch.stack(h_in, dim=1)                       # (b,c,g,r,n,p)
     y = y + torch.einsum("bcign,bcgrnp->bcigrp", Cf, h_in) * torch.exp(cs)[..., None]
     y = y.reshape(b, nc * chunk, h, p)[:, :s] + D.float()[None, None, :, None] * x.float()
-    return y.to(x.dtype), state.reshape(b, h, n, p).transpose(-1, -2).contiguous()
+    final = state.reshape(b, h, n, p).transpose(-1, -2).contiguous()
+    if return_chunk_states:
+        return y.to(x.dtype), final, h_in.reshape(b, nc, h, n, p).transpose(-1, -2).contiguous()
+    return y.to(x.dtype), final
 
 
 def ssd_scan_chained_plain(
@@ -121,17 +148,11 @@ def ssd_scan_chained_plain(
     g, n = B.shape[2], B.shape[3]
     r = h // g
     nc = -(-s // chunk)
-    pad = nc * chunk - s
     pair = _bf16_pair if x.dtype == torch.bfloat16 else (lambda a: (a,))
-
-    def chunked(a, *tail):
-        a = torch.nn.functional.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
-        return a.reshape(b, nc, chunk, *tail)
-
-    xf = chunked(x, g, r, p)                              # (b,c,Q,g,r,p)
-    dtf = chunked(dt, g, r)                               # (b,c,Q,g,r)
-    Bf = chunked(B, g, n)                                 # (b,c,Q,g,n)
-    Cf = chunked(C, g, n)
+    xf = _chunked(x, nc, chunk, g, r, p)                  # (b,c,Q,g,r,p)
+    dtf = _chunked(dt, nc, chunk, g, r)                   # (b,c,Q,g,r)
+    Bf = _chunked(B, nc, chunk, g, n)                     # (b,c,Q,g,n)
+    Cf = _chunked(C, nc, chunk, g, n)
     cs = torch.cumsum(dtf * A.float().reshape(g, r), dim=2)
     # --- every block at once: the intra-chunk part and the local end state ---
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
@@ -163,17 +184,207 @@ def ssd_scan_chained_plain(
     return y.to(x.dtype), slot.reshape(b, h, p, n)
 
 
+def ssd_scan_bwd_plain(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: torch.Tensor, h_in: torch.Tensor, dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None, *, chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`ssd_scan_plain`, written out in PyTorch (no
+    autograd inside), float32 throughout. ``h_in`` (B, nc, H, P, N) holds
+    the state entering each chunk (the forward's, or from
+    ``ssd_scan_kernel(..., return_chunk_states=True)``); ``dfinal`` is the
+    cotangent of the final state, None for zero. Per chunk, with a_k = dt_k
+    A, cs the inclusive cumsum of a, L_ij = exp(cs_i - cs_j) (j <= i),
+    G_ij = C_i . B_j, M_ij = G_ij L_ij dt_j, w_j = exp(cs_last - cs_j) dt_j
+    and gn the cotangent of the state leaving the chunk:
+      the reverse chain: g_nc = dfinal, g_c = exp(cs_last) g_{c+1}
+        + sum_i exp(cs_i) dy_i (outer) C_i, dh0 = g_0;
+      dx_j = sum_{i>=j} M_ij dy_i + w_j gn B_j + D dy_j;
+      dM_ij = dy_i . x_j, dG_ij = dM_ij L_ij dt_j;
+      dC_i = sum_j dG_ij B_j + exp(cs_i) h_c^T dy_i;
+      dB_j = sum_i dG_ij C_i + w_j gn^T x_j (both summed over the group's heads);
+      ddt_j = sum_i dM_ij G_ij L_ij + exp(cs_last - cs_j) x_j . gn B_j + A da_j,
+    where da_k = sum_{i>=k} dcs_i collects the decays' cotangents: R_ij =
+    dM_ij M_ij to dcs_i and minus to dcs_j; exp(cs_i) dy_i . h_c C_i to
+    dcs_i; T_j = w_j x_j . gn B_j minus to dcs_j and to dcs_last;
+    exp(cs_last) <gn, h_c> to dcs_last. dA = sum dt da, dD = sum dy . x.
+    Returns (dx, ddt, dA, dB, dC, dD, dh0) in the dtypes of x, dt, A, B, C,
+    D and float32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc = -(-s // chunk)
+    xf = _chunked(x, nc, chunk, g, r, p)                  # (b,c,Q,g,r,p)
+    dyf = _chunked(dy, nc, chunk, g, r, p)
+    dtf = _chunked(dt, nc, chunk, g, r)                   # (b,c,Q,g,r)
+    Bf = _chunked(B, nc, chunk, g, n)                     # (b,c,Q,g,n)
+    Cf = _chunked(C, nc, chunk, g, n)
+    hin = h_in.float().reshape(b, nc, g, r, p, n)
+    Af = A.float().reshape(g, r)
+    cs = torch.cumsum(dtf * Af, dim=2)
+    e = torch.exp(cs)
+    last = cs[:, :, -1]                                   # (b,c,g,r)
+    to_end = torch.exp(last[:, :, None] - cs)
+    w = to_end * dtf
+    # --- the reverse chain: gn[:, c] is the cotangent of the state leaving chunk c ---
+    u = torch.einsum("bcigr,bcigrp,bcign->bcgrpn", e, dyf, Cf)
+    state = (dfinal.float().reshape(b, g, r, p, n) if dfinal is not None
+             else torch.zeros((b, g, r, p, n), dtype=torch.float32, device=x.device))
+    gn = [state] * nc
+    for c in reversed(range(nc)):
+        gn[c] = state
+        state = torch.exp(last[:, c])[..., None, None] * state + u[:, c]
+    gn = torch.stack(gn, dim=1)                           # (b,c,g,r,p,n)
+    # --- intra-chunk ---
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    diff = cs[:, :, :, None] - cs[:, :, None, :]          # (b,c,i,j,g,r)
+    L = torch.exp(diff.masked_fill(~causal[:, :, None, None], float("-inf")))
+    G = torch.einsum("bcign,bcjgn->bcijg", Cf, Bf)[..., None]
+    dM = torch.einsum("bcigrp,bcjgrp->bcijgr", dyf, xf)
+    Ldt = L * dtf[:, :, None]
+    M = G * Ldt
+    dG = dM * Ldt
+    R = dM * M
+    U = torch.einsum("bcgrpn,bcjgn->bcjgrp", gn, Bf)      # gn B_j
+    xU = (xf * U).sum(-1)                                 # (b,c,Q,g,r)
+    Dr = D.float().reshape(g, r)
+    dx = (torch.einsum("bcijgr,bcigrp->bcjgrp", M, dyf) + w[..., None] * U
+          + Dr[..., None] * dyf)
+    V = torch.einsum("bcgrpn,bcigrp->bcigrn", hin, dyf)   # h_c^T dy_i
+    dC = (torch.einsum("bcijgr,bcjgn->bcign", dG, Bf)
+          + torch.einsum("bcigr,bcigrn->bcign", e, V))
+    dB = (torch.einsum("bcijgr,bcign->bcjgn", dG, Cf)
+          + torch.einsum("bcjgr,bcgrpn,bcjgrp->bcjgn", w, gn, xf))
+    # --- the decays' cotangents ---
+    dcs = (R.sum(3) - R.sum(2) + e * torch.einsum("bcigrn,bcign->bcigr", V, Cf) - w * xU)
+    dcs[:, :, -1] += (w * xU).sum(2) + torch.exp(last) * (gn * hin).sum((-2, -1))
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), dim=2), [2])
+    ddt = (dM * G * L).sum(2) + to_end * xU + Af * da
+    dA = (dtf * da).sum((0, 1, 2)).reshape(h)
+    dD = (dyf * xf).sum((0, 1, 2, -1)).reshape(h)
+
+    def rows(a, *tail):
+        return a.reshape(b, nc * chunk, *tail)[:, :s]
+
+    return (rows(dx, h, p).to(x.dtype), rows(ddt, h).to(dt.dtype), dA.to(A.dtype),
+            rows(dB, g, n).to(B.dtype), rows(dC, g, n).to(C.dtype), dD.to(D.dtype),
+            state.reshape(b, h, p, n))
+
+
+def ssd_scan_bwd_tiled_plain(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: torch.Tensor, h_in: torch.Tensor, dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None, *, chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's algorithm in PyTorch, for the tests. One block
+    per (chunk, head, batch), in ``bwd_ticket_block`` order: it computes its
+    chunk's chain term u = sum_i exp(cs_i) dy_i (outer) C_i, reads gn, the
+    cotangent of the state leaving its chunk (``dfinal`` or zero for the
+    last chunk, else the chain's slot for its (batch, head)), and publishes
+    g = exp(cs_last) gn + u in the slot in place: the slot ends as dh0. Then
+    it recomputes G = C B^T and dM = dy x^T over its chunk, their row and
+    column sums (R, and dM G L for ddt), M and dG in place of them, and the
+    products: dx, its head's partials of dB and dC, ddt, and its partials
+    of dA and dD. A second pass sums dB and dC over each group's heads in
+    the order of the heads, and dA and dD over the blocks in (batch, chunk)
+    order. The kernel rounds nothing but its outputs: bf16 operands enter
+    its products as they are (C B^T and dy x^T on the tensor cores, exact
+    products summed in f32), and every other product and sum is f32, as
+    here. Returns what :func:`ssd_scan_bwd_plain` returns."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    nc = -(-s // chunk)
+    dev = x.device
+    xf, dyf = _chunked(x, nc, chunk, h, p), _chunked(dy, nc, chunk, h, p)
+    dtf = _chunked(dt, nc, chunk, h)
+    Bf, Cf = _chunked(B, nc, chunk, g, n), _chunked(C, nc, chunk, g, n)
+    hin = h_in.float()
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    dx = torch.zeros((b, nc, chunk, h, p), dtype=torch.float32, device=dev)
+    ddt = torch.zeros((b, nc, chunk, h), dtype=torch.float32, device=dev)
+    part_B = torch.zeros((b, nc, chunk, h, n), dtype=torch.float32, device=dev)
+    part_C = torch.zeros_like(part_B)
+    part_A = torch.zeros((b, nc, h), dtype=torch.float32, device=dev)
+    part_D = torch.zeros_like(part_A)
+    slot = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
+    for t in range(nc * h * b):
+        c, hh, bb = bwd_ticket_block(t, nc, h, b)
+        gg = hh // r
+        xs, dys, dts = xf[bb, c, :, hh], dyf[bb, c, :, hh], dtf[bb, c, :, hh]
+        Bs, Cs, hc = Bf[bb, c, :, gg], Cf[bb, c, :, gg], hin[bb, c, hh]
+        a = A[hh].float()
+        cs = torch.cumsum(dts * a, dim=0)
+        e, el = torch.exp(cs), torch.exp(cs[-1])
+        to_end = torch.exp(cs[-1] - cs)
+        w = to_end * dts
+        # the chain
+        u = (e[:, None] * dys).T @ Cs                     # (p, n)
+        if c < nc - 1:
+            gn = slot[bb, hh].clone()
+        elif dfinal is not None:
+            gn = dfinal[bb, hh].float()
+        else:
+            gn = torch.zeros((p, n), dtype=torch.float32, device=dev)
+        slot[bb, hh] = el * gn + u
+        hg = (gn * hc).sum()
+        # G and dM, their row and column sums, then M and dG in their place
+        L = torch.exp((cs[:, None] - cs[None, :]).masked_fill(~causal, float("-inf")))
+        G, dM = Cs @ Bs.T, dys @ xs.T
+        row_R = (dM * G * L * dts[None, :]).sum(1)
+        col_R = (dM * G * L * dts[None, :]).sum(0)
+        col_K = (dM * G * L).sum(0)
+        M, dG = G * L * dts[None, :], dM * L * dts[None, :]
+        # dx: the state part (and x_j . gn B_j), D dy, the intra part
+        U = Bs @ gn.T                                     # (Q, p): gn B_j
+        xU = (xs * U).sum(1)
+        dx[bb, c, :, hh] = w[:, None] * U + D[hh].float() * dys + M.T @ dys
+        part_B[bb, c, :, hh] = w[:, None] * (xs @ gn) + dG.T @ Cs
+        V = dys @ hc                                      # (Q, n): h_c^T dy_i
+        dcs_inter = e * (V * Cs).sum(1)
+        part_C[bb, c, :, hh] = e[:, None] * V + dG @ Bs
+        dcs = row_R - col_R + dcs_inter - w * xU
+        dcs[-1] += (w * xU).sum() + el * hg
+        da = torch.flip(torch.cumsum(torch.flip(dcs, [0]), dim=0), [0])
+        ddt[bb, c, :, hh] = col_K + to_end * xU + a * da
+        part_A[bb, c, hh] = (dts * da).sum()
+        part_D[bb, c, hh] = (dys * xs).sum()
+    # the fixed-order sums: the group's heads in order, the blocks in (batch, chunk) order
+    part_B = part_B.reshape(b, nc, chunk, g, r, n)
+    part_C = part_C.reshape(b, nc, chunk, g, r, n)
+    dB, dC = part_B[..., 0, :], part_C[..., 0, :]
+    for k in range(1, r):
+        dB, dC = dB + part_B[..., k, :], dC + part_C[..., k, :]
+    dA, dD = torch.zeros(h, device=dev), torch.zeros(h, device=dev)
+    for k in range(b * nc):
+        dA, dD = dA + part_A.reshape(b * nc, h)[k], dD + part_D.reshape(b * nc, h)[k]
+
+    def rows(t, *tail):
+        return t.reshape(b, nc * chunk, *tail)[:, :s]
+
+    return (rows(dx, h, p).to(x.dtype), rows(ddt, h).to(dt.dtype), dA.to(A.dtype),
+            rows(dB, g, n).to(B.dtype), rows(dC, g, n).to(C.dtype), dD.to(D.dtype), slot)
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _error_string(err: int) -> str:
-    fn = _build.load("ssd_scan").ssd_scan_error_string
+def _bwd_kernel():
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _error_string(err: int, source: str = "ssd_scan") -> str:
+    fn = getattr(_build.load(source), f"{source}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(err).decode()
@@ -182,13 +393,13 @@ def _error_string(err: int) -> str:
 _syncs = {}  # device index -> int32 ticket counter and the chain's flags, zeroed once
 
 
-def _sync_buffer(x, b, h, p):
-    """The chained scan's ticket counter and its per-(batch, head, column
-    half) flags, allocated zeroed at first use (or when a larger batch or
-    more heads need more) and left zero by every launch; so launches that
-    share a device run in one stream's order."""
+def _sync_buffer(x, n):
+    """The chained scans' ticket counter and their flags (the forward's per
+    (batch, head, column half), the backward's per (batch, head)): ``n``
+    int32, allocated zeroed at first use (or when a launch needs more) and
+    left zero by every launch of either kernel; so launches that share a
+    device run in one stream's order."""
     buf = _syncs.get(x.device.index)
-    n = 1 + p // COLUMNS * b * h
     if buf is None or buf.numel() < n:
         buf = torch.zeros(n, dtype=torch.int32, device=x.device)
         _syncs[x.device.index] = buf
@@ -245,24 +456,106 @@ def _check(x, dt, A, B, C, D, chunk, initial_state):
 def ssd_scan_kernel(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, D: torch.Tensor, *, chunk: int,
-    initial_state: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    initial_state: Optional[torch.Tensor] = None, return_chunk_states: bool = False,
+):
     """Launch the CUDA kernel on PyTorch's current stream; raises on a CPU
-    tensor, on an input it does not take, or if the launch fails."""
+    tensor, on an input it does not take, or if the launch fails. Returns
+    (y, final state), and with ``return_chunk_states`` also the state
+    entering each chunk, (B, nc, H, P, N) f32, for the backward."""
     global launches
     _check(x, dt, A, B, C, D, chunk, initial_state)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = (torch.empty((b, -(-s // chunk), h, p, n), dtype=torch.float32, device=x.device)
+            if return_chunk_states else None)
     err = _kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
         0 if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
-        final.data_ptr(), _sync_buffer(x, b, h, p).data_ptr(), b, s, h, p, g, n, chunk,
+        final.data_ptr(), 0 if h_in is None else h_in.data_ptr(),
+        _sync_buffer(x, 1 + p // COLUMNS * b * h).data_ptr(), b, s, h, p, g, n, chunk,
         DTYPE_CODES[x.dtype],
         torch.cuda.current_stream().cuda_stream,
     )
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: {_error_string(err)}")
     launches += 1
-    return y, final
+    return (y, final, h_in) if return_chunk_states else (y, final)
+
+
+def ssd_scan_bwd_kernel(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, D: torch.Tensor, h_in: torch.Tensor, dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None, *, chunk: int, drop_decay_grad: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel (``BWD_KERNELS`` launches on PyTorch's
+    current stream): (dx, ddt, dA, dB, dC, dD, dh0) as
+    :func:`ssd_scan_bwd_plain` returns them. ``dfinal`` None is a zero
+    cotangent of the final state. ``drop_decay_grad`` drops the decays'
+    cotangent (dcs = 0: ddt keeps its direct terms, dA is zero), a wrong
+    gradient for controls that must be caught. Raises on a CPU tensor, on
+    an input it does not take, or if a launch fails."""
+    global bwd_launches
+    _check(x, dt, A, B, C, D, chunk, None)
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-s // chunk)
+    wants = {"h_in": (h_in, (b, nc, h, p, n), torch.float32), "dy": (dy, x.shape, x.dtype)}
+    if dfinal is not None:
+        wants["dfinal"] = (dfinal, (b, h, p, n), torch.float32)
+    for name, (t, shape, dtype) in wants.items():
+        if (t.shape != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} {tuple(shape)} tensor on "
+                             f"{x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if dy.data_ptr() % 16:
+        raise ValueError("dy must start on a 16-byte boundary")
+    dev = x.device
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dA, dD = (torch.empty((h,), dtype=torch.float32, device=dev) for _ in range(2))
+    dh0 = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)   # also the chain's slot
+    part_B, part_C = (torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
+                      for _ in range(2))                  # per-head partials
+    part_A, part_D = (torch.empty((b, nc, h), dtype=torch.float32, device=dev)
+                      for _ in range(2))                  # per-block partials
+    err = _bwd_kernel()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        h_in.data_ptr(), dy.data_ptr(), 0 if dfinal is None else dfinal.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dD.data_ptr(), dh0.data_ptr(), part_B.data_ptr(), part_C.data_ptr(), part_A.data_ptr(),
+        part_D.data_ptr(), _sync_buffer(x, 1 + b * h).data_ptr(),
+        b, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype], int(drop_decay_grad),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        raise RuntimeError("ssd_scan backward kernel launch failed: "
+                           f"{_error_string(err, 'ssd_scan_bwd')}")
+    bwd_launches += BWD_KERNELS
+    return dx, ddt, dA, dB, dC, dD, dh0
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The SSD scan with the kernels on both sides: the forward kernel,
+    keeping the state entering each chunk for the backward, and the
+    backward kernel. CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, initial_state, chunk: int):
+        y, final, h_in = ssd_scan_kernel(x, dt, A, B, C, D, chunk=chunk,
+                                         initial_state=initial_state, return_chunk_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, D, h_in)
+        ctx.chunk, ctx.has_h0 = chunk, initial_state is not None
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, D, h_in = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.float().contiguous()
+        dx, ddt, dA, dB, dC, dD, dh0 = ssd_scan_bwd_kernel(
+            x, dt, A, B, C, D, h_in, dy, dfinal, chunk=ctx.chunk)
+        return dx, ddt, dA, dB, dC, dD, dh0 if ctx.has_h0 else None, None

@@ -5,11 +5,15 @@ a step-time watchdog for stragglers). The port of ``repro/launch/train.py``.
 Usage (the full-width model on the card, or a reduced one on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \\
       --steps 5 --seq-len 128 --global-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --steps 3 --seq-len 512 --global-batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --reduced \\
       --device cpu --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20
 
-On the card, attention runs the hand-written forward and backward kernels
-(``kernels.flash_attention.FlashAttentionFn``). Training over a mesh
+Every family trains on the card: attention runs the hand-written forward
+and backward kernels (``kernels.flash_attention.FlashAttentionFn``), and
+the Mamba2 layers of the SSM and hybrid families the SSD scan's
+(``kernels.ssd_scan.SsdScanFn``). Training over a mesh
 (``--use-mesh``) is not ported yet: ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations

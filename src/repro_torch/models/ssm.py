@@ -10,7 +10,8 @@ config's dtype.
   Bm = silu(conv_B(h @ w_B))         (B,S,G·N)
   Cm = silu(conv_C(h @ w_C))         (B,S,G·N)
   dt = softplus(h @ w_dt + bias)     (B,S,nh)   fp32
-  y  = SSD(x, dt, A, Bm, Cm, D)
+  y  = SSD(x, dt, A, Bm, Cm, D)      (ops.ssd_scan: on the card the SSD kernel,
+                                      and under autograd its backward too)
   out = RMSNorm(y ⊙ silu(z)) @ w_out
 
 A layer's state is the tuple (conv_x, conv_B, conv_C, ssm): the last K-1

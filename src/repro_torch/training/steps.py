@@ -1,9 +1,10 @@
 """Train / serve step functions: the port of ``repro/training/steps.py``.
 
 Gradients come from ``torch.autograd`` through ``models.model.forward``: on
-the card through the hand-written attention kernels (forward and backward,
-``kernels.flash_attention.FlashAttentionFn``), on the CPU through the plain
-versions. ``train_step`` updates the parameters and the optimizer state in
+the card through the hand-written kernels, forward and backward, of
+attention (``kernels.flash_attention.FlashAttentionFn``) and, for the SSM
+and hybrid families, of the SSD scan (``kernels.ssd_scan.SsdScanFn``); on
+the CPU through the plain versions. ``train_step`` updates the parameters and the optimizer state in
 place (``optimizer.apply_updates``) and returns them.
 """
 from __future__ import annotations

@@ -84,7 +84,7 @@ def _build_knockouts(_build):
         log, _ = proc.communicate()
         assert proc.returncode == 0, f"nvcc failed for the {name} knock-out:\n{log}"
         fn = ctypes.CDLL(str(lib)).ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         libs[name] = fn
     return libs

@@ -39,7 +39,16 @@ any of its instantiations, and the SASS of its bf16 dK/dV and dQ kernels
 must hold tensor-core (HMMA) instructions; the forward's
 log-sum-exp output against the plain LSE, with o unchanged bit for bit;
 autograd through ops.flash_attention on the card against autograd over the
-oracle; and ops.ssd_scan under autograd on the card must raise.
+oracle. The SSD backward kernel (training) is held against
+ssd_scan_bwd_plain at the three built (P, N, chunk), ragged last chunks,
+one and two groups, with and without an initial state and a cotangent of
+the final state, and over 128 chunks (float32 3e-4, bfloat16 2e-2, both
+also times each gradient's largest magnitude as atol), and to bitwise
+repeatability; the forward writing its chunk states leaves y and the final
+state unchanged bit for bit; no instantiation spills and the bf16 ones hold
+HMMA; ops.ssd_scan under autograd on the card runs SsdScanFn, whose
+gradients are the plain backward's; and the decode entries raise under
+autograd on the card.
 """
 import numpy as np
 import pytest
@@ -673,19 +682,168 @@ def test_flash_bwd_bf16_kernels_run_on_the_tensor_cores(cuda_device):
     assert len(bf16) == 2 * len(HEAD_DIMS) and all(n > 0 for n in bf16.values()), hmma
 
 
-def test_ssd_scan_under_grad_raises_on_the_card(cuda_device):
-    """The SSD kernel has no backward yet: under autograd on a CUDA tensor
-    ops.ssd_scan raises instead of returning an output with no gradient;
-    with no grad it runs the kernel as in serving."""
-    rng = np.random.default_rng(35)
-    b, s, h, p, g, n = 1, 19, 8, 32, 1, 16
-    x = _randn(rng, (b, s, h, p), torch.float32, cuda_device).requires_grad_()
-    dt = torch.full((b, s, h), 0.1, device=cuda_device)
-    A = -torch.ones(h, device=cuda_device)
-    B, C = (_randn(rng, (b, s, g, n), torch.float32, cuda_device) for _ in range(2))
-    D = torch.ones(h, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+# The SSD backward (training): the three built (P, N, chunk), ragged last
+# chunks, two groups, an initial state and a cotangent of the final state
+SSD_BWD_CASES = [
+    # (B, S, H, P, G, N, chunk, with_h0, with_dfinal)
+    (2, 256, 8, 64, 1, 128, 128, False, False),
+    (2, 300, 8, 64, 2, 128, 128, True, True),
+    (1, 129, 8, 64, 1, 64, 128, True, False),
+    (2, 300, 8, 64, 2, 64, 128, False, True),
+    (1, 19, 8, 32, 1, 16, 32, False, False),
+    (2, 97, 8, 32, 2, 16, 32, True, True),
+    (4, 4096, 8, 32, 1, 16, 32, False, True),  # 128 chunks of 32 rows
+]
+
+
+def _ssd_bwd_inputs(rng, b, s, h, p, g, n, chunk, dtype, with_h0, with_dfinal, device):
+    args, h0 = _ssd_inputs(rng, b, s, h, g, n, dtype, with_h0, device, p=p)
+    dy = _randn(rng, (b, s, h, p), dtype, device)
+    dfinal = _randn(rng, (b, h, p, n), torch.float32, device) if with_dfinal else None
+    return args, h0, dy, dfinal
+
+
+def _close_grads(got, want, dtype):
+    """Each gradient within SSD_TOL (rtol) and SSD_TOL times its largest
+    reference magnitude (atol): ddt and dA sum terms of hundreds that cancel."""
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = w.float().abs().max().item()
+        torch.testing.assert_close(g.float(), w.float(), atol=SSD_TOL[dtype] * scale,
+                                   rtol=SSD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    """dx, ddt, dA, dB, dC, dD and dh0 of the backward kernel against
+    ssd_scan_bwd_plain on the same inputs and the forward kernel's chunk
+    states, which agree with the plain forward's; float32 at 3e-4, bfloat16
+    at 2e-2 (the kernel sums in f32 in another order and rounds dx, dB and
+    dC to bf16 once); the device's chain flags left zero."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk, with_h0, with_df = case
+    args, h0, dy, df = _ssd_bwd_inputs(np.random.default_rng(40), b, s, h, p, g, n, chunk, dtype,
+                                       with_h0, with_df, cuda_device)
+    _, _, h_in = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0,
+                                     return_chunk_states=True)
+    _, _, h_in_plain = ssd.ssd_scan_plain(*args, chunk=chunk, initial_state=h0,
+                                          return_chunk_states=True)
+    got = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=chunk)
+    torch.cuda.synchronize()
+    assert not ssd._syncs[cuda_device.index or 0].any()
+    _close(h_in, h_in_plain, dtype, SSD_TOL)
+    _close_grads(got, ssd.ssd_scan_bwd_plain(*args, h_in, dy, df, chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_bwd_kernel_is_bitwise_repeatable(cuda_device, dtype, g):
+    """The reverse chain adds the cotangents in chunk order, and dB, dC, dA
+    and dD are summed from partials in index order: two calls are equal bit
+    for bit, at 80 heads over one group and over two."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    args, h0, dy, df = _ssd_bwd_inputs(np.random.default_rng(41), 2, 1000, 80, 64, g, 128, 128,
+                                       dtype, True, True, cuda_device)
+    _, _, h_in = ssd.ssd_scan_kernel(*args, chunk=128, initial_state=h0,
+                                     return_chunk_states=True)
+    first = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128)
+    torch.cuda.synchronize()
+    again = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128)
+    assert all(torch.equal(a, f) for a, f in zip(again, first, strict=True))
+
+
+@pytest.mark.parametrize("shape", [(1, 19, 80, 64, 1, 128, 128), (2, 300, 8, 64, 2, 64, 128),
+                                   (2, 97, 8, 32, 1, 16, 32)])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_forward_with_chunk_states_is_bit_identical(cuda_device, shape, with_h0, dtype):
+    """Writing the chunk states for training leaves serving's y and final
+    state the same bit for bit; chunk 0's state is h0, or zero."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk = shape
+    args, h0 = _ssd_inputs(np.random.default_rng(42), b, s, h, g, n, dtype, with_h0,
+                           cuda_device, p=p)
+    y, final = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0)
+    y_t, final_t, h_in = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0,
+                                             return_chunk_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_t) and torch.equal(final, final_t)
+    assert h_in.shape == (b, -(-s // chunk), h, p, n) and h_in.dtype == torch.float32
+    assert torch.equal(h_in[:, 0], h0 if with_h0 else torch.zeros_like(h_in[:, 0]))
+
+
+def test_ssd_bwd_kernel_spills_nothing(cuda_device):
+    """nvcc's -Xptxas -v report on csrc/ssd_scan_bwd.cu: every instantiation
+    (both dtypes, every built shape, and the sums) spills no bytes."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    report = _build.ptxas_report(_build.build(("ssd_scan_bwd",))["ssd_scan_bwd"])
+    names = [r["fn"] for r in report]
+    for kind in ("ssd_bwd_kernel<__nv_bfloat16", "ssd_bwd_kernel<float"):
+        assert sum(kind in n for n in names) == len(ssd.SHAPES), names
+    assert all(r.get("spill_bytes", 0) == 0 for r in report), report
+
+
+def test_ssd_bwd_bf16_kernels_run_on_the_tensor_cores(cuda_device):
+    """cuobjdump -sass of the built library: C B^T and dy x^T put HMMA
+    instructions in the bf16 backward kernel at every built shape."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    _build.build(("ssd_scan_bwd",))
+    hmma = _build.sass_hmma(_build.library_path("ssd_scan_bwd"))
+    assert hmma is not None, "the toolkit has no cuobjdump"
+    bf16 = {fn: k for fn, k in hmma.items() if "ssd_bwd_kernel<__nv_bfloat16" in fn}
+    assert len(bf16) == len(ssd.SHAPES) and all(k > 0 for k in bf16.values()), hmma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 8, 64, 2, 128, 128), (2, 97, 8, 32, 1, 16, 32)])
+def test_ssd_scan_under_grad_on_the_card_matches_the_plain_backward(cuda_device, dtype, shape):
+    """ops.ssd_scan under autograd on the card runs SsdScanFn: one forward
+    launch and one backward call of BWD_KERNELS launches; its gradients,
+    the initial state's too, are ssd_scan_bwd_plain's on the chunk states
+    of the forward (None as the final state's cotangent is zero); with no
+    grad the forward kernel runs alone, as in serving."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk = shape
+    args, h0, dy, _ = _ssd_bwd_inputs(np.random.default_rng(43), b, s, h, p, g, n, chunk, dtype,
+                                      True, False, cuda_device)
+    leaves = [t.detach().requires_grad_() for t in (*args, h0)]
+    fwd0, bwd0 = ssd.launches, ssd.bwd_launches
+    y, _ = ops.ssd_scan(*leaves[:6], chunk=chunk, initial_state=leaves[6])
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (ssd.launches - fwd0, ssd.bwd_launches - bwd0) == (1, ssd.BWD_KERNELS)
+    assert [t.dtype for t in got] == [t.dtype for t in leaves]
+    _, _, h_in = ssd.ssd_scan_plain(*args, chunk=chunk, initial_state=h0,
+                                    return_chunk_states=True)
+    _close_grads(got, ssd.ssd_scan_bwd_plain(*args, h_in, dy, None, chunk=chunk), dtype)
     with torch.no_grad():
-        y, _ = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
-    assert y.shape == x.shape
+        y_ng, _ = ops.ssd_scan(*leaves[:6], chunk=chunk, initial_state=leaves[6])
+    assert torch.equal(y_ng, y) and ssd.bwd_launches - bwd0 == ssd.BWD_KERNELS
+
+
+def test_decode_under_grad_raises_on_the_card(cuda_device):
+    """The decode kernels are serving-only: under autograd on a CUDA tensor
+    decode_attention and decode_attention_partials raise for 'auto' and
+    'kernel' instead of returning an output with no history; 'plain' and
+    'ref' stay differentiable, and with no grad the kernels run."""
+    rng = np.random.default_rng(44)
+    q = _randn(rng, (2, 8, 64), torch.float32, cuda_device).requires_grad_()
+    kc, vc = (_randn(rng, (2, 96, 2, 64), torch.float32, cuda_device) for _ in range(2))
+    lens = torch.tensor([40, 96], dtype=torch.int32, device=cuda_device)
+    for fn in (ops.decode_attention, ops.decode_attention_partials):
+        for impl in ("auto", "kernel"):
+            with pytest.raises(NotImplementedError, match="serving-only"):
+                fn(q, kc, vc, lens, impl=impl)
+        for impl in ("plain", "ref"):
+            out = fn(q, kc, vc, lens, impl=impl)
+            out = out[0] if isinstance(out, tuple) else out
+            (dq,) = torch.autograd.grad(out.sum(), [q])
+            assert torch.isfinite(dq).all() and dq.abs().sum() > 0
+        with torch.no_grad():
+            fn(q, kc, vc, lens, impl="kernel")

@@ -258,7 +258,18 @@ def test_train_step_matches_jax(arch_run, n_steps):
 
 
 def test_microbatches_match_jax_scan():
-    jcfg, cfg = _cfgs("qwen2-7b")
+    _microbatches_match_jax_scan("qwen2-7b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_microbatches_match_jax_scan_on_the_ssm_families(arch):
+    """The same for the Mamba2 and hybrid families, whose gradients run
+    through the SSD scan's backward."""
+    _microbatches_match_jax_scan(arch)
+
+
+def _microbatches_match_jax_scan(arch):
+    jcfg, cfg = _cfgs(arch)
     jparams, params = _bridge(jcfg, cfg, seed=1)
     (jb, tb), = _batches(jcfg, cfg, 1, batch=4)
     jc, tc = jopt.AdamWConfig(**OPT_CFG), topt.AdamWConfig(**OPT_CFG)
@@ -272,7 +283,7 @@ def test_microbatches_match_jax_scan():
     _params_close(tp, jp, grads, float(tm["lr"]))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "zamba2-1.2b", "mamba2-2.7b"])
 def test_remat_gives_the_same_gradients(arch):
     """cfg.remat recomputes each block (each Mamba2 layer of the hybrid) in
     the backward pass: the gradients are equal to those without it."""
@@ -344,5 +355,15 @@ def test_training_reduces_loss():
     CLI entry point on the CPU."""
     from repro_torch.launch.train import train
     _, _, losses = train("granite-8b", reduced=True, steps=100, seq_len=64,
+                         global_batch=8, log_every=0, lr=3e-3, device="cpu")
+    assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
+
+
+def test_ssm_training_reduces_loss():
+    """Reduced mamba2-2.7b, 100 steps through the CLI's entry point on the
+    CPU (two chunks of 32 per sequence): the twin of chip_smoke's run on
+    the card through the SSD kernels."""
+    from repro_torch.launch.train import train
+    _, _, losses = train("mamba2-2.7b", reduced=True, steps=100, seq_len=64,
                          global_batch=8, log_every=0, lr=3e-3, device="cpu")
     assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
