@@ -21,9 +21,11 @@ columns, and passes the state from chunk to chunk in the same launch, in
 the order of the tickets its blocks draw (``ticket_block``);
 ``ssd_scan_chained_plain`` mirrors that algorithm, with the kernel's bf16
 rounding points, for the tests; ``ssd_scan_bwd_tiled_plain`` mirrors the
-backward kernel's (a block per chunk, head and batch; the reverse chain in
-``bwd_ticket_block`` order; per-head partials of dB and dC and per-block
-partials of dA and dD, summed in index order). The kernels are built for
+backward kernel's (a block per chunk, block of heads of one group and
+batch, taking its heads in turn; the reverse chain in ``bwd_ticket_block``
+order; one partial of dB and of dC per block of heads and per-head
+partials of dA and dD, summed in index order; the f32 operands of its
+tensor-core products as bf16 hi + lo pairs). The kernels are built for
 the (head_dim P,
 d_state N, chunk) of ``SHAPES``: mamba2-2.7b's (64, 128, 128), zamba2-1.2b's
 (64, 64, 128) and both configs reduced, (32, 16, 32); they raise for any
@@ -52,6 +54,7 @@ COLUMNS = 32           # head_dim columns per block of the kernel (PB in the sou
 launches = 0      # kernel launches made by ssd_scan_kernel; callers may reset it
 bwd_launches = 0  # kernel launches made by ssd_scan_bwd_kernel; likewise
 BWD_KERNELS = 2   # launches a backward call makes: the chunks, then the fixed-order sums
+MAX_HEADS_PER_BLOCK = 16   # heads a backward block may take in turn (its per-head scratch)
 
 
 def ticket_block(ticket: int, h: int, b: int, p: int) -> Tuple[int, int, int, int]:
@@ -64,11 +67,12 @@ def ticket_block(ticket: int, h: int, b: int, p: int) -> Tuple[int, int, int, in
         ticket // halves // h % b
 
 
-def bwd_ticket_block(ticket: int, nc: int, h: int, b: int) -> Tuple[int, int, int]:
-    """(chunk, head, batch) of the backward block that draws ``ticket``:
-    reverse chunk-major, so every block of chunk c + 1 has drawn its ticket
-    (and runs) before any block of chunk c, which waits on it."""
-    return nc - 1 - ticket // (h * b), ticket % h, ticket // h % b
+def bwd_ticket_block(ticket: int, nc: int, hb: int, b: int) -> Tuple[int, int, int]:
+    """(chunk, head block, batch) of the backward block that draws
+    ``ticket``, with ``hb`` head blocks: reverse chunk-major, so every block
+    of chunk c + 1 has drawn its ticket (and runs) before any block of chunk
+    c, which waits on it."""
+    return nc - 1 - ticket // (hb * b), ticket % hb, ticket // hb % b
 
 
 def _bf16_pair(a: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -271,31 +275,57 @@ def ssd_scan_bwd_plain(
             state.reshape(b, h, p, n))
 
 
+def bwd_heads_per_block(h: int, g: int, blocks_per_head: int, slots: int) -> int:
+    """Heads one backward block takes in turn: the divisor r of a group's
+    H / G heads, at most ``MAX_HEADS_PER_BLOCK``, that needs the fewest
+    head-times, waves x r, where a wave is ``slots`` blocks (the card's SMs
+    times the blocks an SM holds) and the launch has ``blocks_per_head`` x
+    H / r blocks; the larger r on a tie (fewer dB and dC partials, and B and
+    C loaded once for more heads). mamba2-2.7b's training step (16 blocks a
+    head over 132 SMs): 10 of its 80 heads, one wave of 128 blocks."""
+    best = (0, 0)
+    for r in range(1, min(h // g, MAX_HEADS_PER_BLOCK) + 1):
+        if (h // g) % r == 0:
+            cost = -(-(blocks_per_head * h // r) // slots) * r
+            if best[1] == 0 or cost <= best[0]:
+                best = (cost, r)
+    return best[1]
+
+
 def ssd_scan_bwd_tiled_plain(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, D: torch.Tensor, h_in: torch.Tensor, dy: torch.Tensor,
-    dfinal: Optional[torch.Tensor] = None, *, chunk: int,
+    dfinal: Optional[torch.Tensor] = None, *, chunk: int, heads_per_block: int = 1,
 ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's algorithm in PyTorch, for the tests. One block
-    per (chunk, head, batch), in ``bwd_ticket_block`` order: it computes its
-    chunk's chain term u = sum_i exp(cs_i) dy_i (outer) C_i, reads gn, the
-    cotangent of the state leaving its chunk (``dfinal`` or zero for the
-    last chunk, else the chain's slot for its (batch, head)), and publishes
-    g = exp(cs_last) gn + u in the slot in place: the slot ends as dh0. Then
-    it recomputes G = C B^T and dM = dy x^T over its chunk, their row and
-    column sums (R, and dM G L for ddt), M and dG in place of them, and the
-    products: dx, its head's partials of dB and dC, ddt, and its partials
-    of dA and dD. A second pass sums dB and dC over each group's heads in
-    the order of the heads, and dA and dD over the blocks in (batch, chunk)
-    order. The kernel rounds nothing but its outputs: bf16 operands enter
-    its products as they are (C B^T and dy x^T on the tensor cores, exact
-    products summed in f32), and every other product and sum is f32, as
-    here. Returns what :func:`ssd_scan_bwd_plain` returns."""
+    per (chunk, block of ``heads_per_block`` heads of one group, batch), in
+    ``bwd_ticket_block`` order, takes its heads in turn three times. Pass A,
+    per head: gn, the cotangent of the state leaving the chunk (``dfinal``
+    or zero for the last chunk, else the chain's slot for its (batch, head)),
+    kept for pass B; g = exp(cs_last) gn + u published in the slot in place
+    (it ends as dh0), u = sum_i exp(cs_i) dy_i (outer) C_i; <gn, h_c>; dx
+    from G = C B^T tile by tile. Pass B, per head: G and dM = dy x^T, their
+    sums over i (R and dM G L, for dcs and ddt), and the head's dB terms
+    added to the block's dB. Pass C, per head: G and dM again, their sums
+    over j, the head's dC terms added to the block's dC, then dcs, its
+    reverse cumsum da, ddt and the head's partials of dA and dD. The block
+    writes its dB and dC as one partial each; a second launch sums them
+    over a group's head blocks in order, and dA and dD over the (batch,
+    chunk) blocks in order. For bf16 inputs it rounds where the kernel's
+    tensor-core products do: the f32 operands (M, dG, gn, the chunk state
+    h_c and exp(cs) dy) enter as bf16 hi + lo pairs against the exact bf16
+    partner, and <gn, h_c> takes gn as its pair; G and dM take the bf16
+    inputs as they are. For f32 inputs nothing is rounded, as in the
+    kernel's scalar f32 instantiation. Returns what
+    :func:`ssd_scan_bwd_plain` returns."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    r = h // g
+    r, hb_n = h // g, h // heads_per_block
+    if r % heads_per_block:
+        raise ValueError(f"heads_per_block {heads_per_block} does not divide {r} heads a group")
     nc = -(-s // chunk)
     dev = x.device
+    pair = _bf16_pair if x.dtype == torch.bfloat16 else (lambda a: (a,))
     xf, dyf = _chunked(x, nc, chunk, h, p), _chunked(dy, nc, chunk, h, p)
     dtf = _chunked(dt, nc, chunk, h)
     Bf, Cf = _chunked(B, nc, chunk, g, n), _chunked(C, nc, chunk, g, n)
@@ -303,57 +333,72 @@ def ssd_scan_bwd_tiled_plain(
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
     dx = torch.zeros((b, nc, chunk, h, p), dtype=torch.float32, device=dev)
     ddt = torch.zeros((b, nc, chunk, h), dtype=torch.float32, device=dev)
-    part_B = torch.zeros((b, nc, chunk, h, n), dtype=torch.float32, device=dev)
+    part_B = torch.zeros((b, nc, chunk, hb_n, n), dtype=torch.float32, device=dev)
     part_C = torch.zeros_like(part_B)
     part_A = torch.zeros((b, nc, h), dtype=torch.float32, device=dev)
     part_D = torch.zeros_like(part_A)
     slot = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
-    for t in range(nc * h * b):
-        c, hh, bb = bwd_ticket_block(t, nc, h, b)
-        gg = hh // r
+
+    def head(bb, c, hh, Bs, Cs):
+        """Per-head values both passes recompute: cs and its decays, G, dM
+        and L."""
         xs, dys, dts = xf[bb, c, :, hh], dyf[bb, c, :, hh], dtf[bb, c, :, hh]
-        Bs, Cs, hc = Bf[bb, c, :, gg], Cf[bb, c, :, gg], hin[bb, c, hh]
-        a = A[hh].float()
-        cs = torch.cumsum(dts * a, dim=0)
-        e, el = torch.exp(cs), torch.exp(cs[-1])
-        to_end = torch.exp(cs[-1] - cs)
-        w = to_end * dts
-        # the chain
-        u = (e[:, None] * dys).T @ Cs                     # (p, n)
-        if c < nc - 1:
-            gn = slot[bb, hh].clone()
-        elif dfinal is not None:
-            gn = dfinal[bb, hh].float()
-        else:
-            gn = torch.zeros((p, n), dtype=torch.float32, device=dev)
-        slot[bb, hh] = el * gn + u
-        hg = (gn * hc).sum()
-        # G and dM, their row and column sums, then M and dG in their place
+        cs = torch.cumsum(dts * A[hh].float(), dim=0)
         L = torch.exp((cs[:, None] - cs[None, :]).masked_fill(~causal, float("-inf")))
-        G, dM = Cs @ Bs.T, dys @ xs.T
-        row_R = (dM * G * L * dts[None, :]).sum(1)
-        col_R = (dM * G * L * dts[None, :]).sum(0)
-        col_K = (dM * G * L).sum(0)
-        M, dG = G * L * dts[None, :], dM * L * dts[None, :]
-        # dx: the state part (and x_j . gn B_j), D dy, the intra part
-        U = Bs @ gn.T                                     # (Q, p): gn B_j
-        xU = (xs * U).sum(1)
-        dx[bb, c, :, hh] = w[:, None] * U + D[hh].float() * dys + M.T @ dys
-        part_B[bb, c, :, hh] = w[:, None] * (xs @ gn) + dG.T @ Cs
-        V = dys @ hc                                      # (Q, n): h_c^T dy_i
-        dcs_inter = e * (V * Cs).sum(1)
-        part_C[bb, c, :, hh] = e[:, None] * V + dG @ Bs
-        dcs = row_R - col_R + dcs_inter - w * xU
-        dcs[-1] += (w * xU).sum() + el * hg
-        da = torch.flip(torch.cumsum(torch.flip(dcs, [0]), dim=0), [0])
-        ddt[bb, c, :, hh] = col_K + to_end * xU + a * da
-        part_A[bb, c, hh] = (dts * da).sum()
-        part_D[bb, c, hh] = (dys * xs).sum()
-    # the fixed-order sums: the group's heads in order, the blocks in (batch, chunk) order
-    part_B = part_B.reshape(b, nc, chunk, g, r, n)
-    part_C = part_C.reshape(b, nc, chunk, g, r, n)
+        return xs, dys, dts, cs, L, Cs @ Bs.T, dys @ xs.T
+
+    for t in range(nc * hb_n * b):
+        c, hb, bb = bwd_ticket_block(t, nc, hb_n, b)
+        heads = range(hb * heads_per_block, (hb + 1) * heads_per_block)
+        gg = heads[0] // r
+        Bs, Cs = Bf[bb, c, :, gg], Cf[bb, c, :, gg]
+        dB, dC, saved = 0.0, 0.0, {}
+        for hh in heads:        # pass A: the chain, dx
+            xs, dys, dts, cs, L, G, dM = head(bb, c, hh, Bs, Cs)
+            e, el, to_end = torch.exp(cs), torch.exp(cs[-1]), torch.exp(cs[-1] - cs)
+            w = to_end * dts
+            u = sum(part.T @ Cs for part in pair(e[:, None] * dys))          # (p, n)
+            if c < nc - 1:
+                gn = slot[bb, hh].clone()
+            elif dfinal is not None:
+                gn = dfinal[bb, hh].float()
+            else:
+                gn = torch.zeros((p, n), dtype=torch.float32, device=dev)
+            slot[bb, hh] = el * gn + u
+            M = G * L * dts[None, :]
+            U = sum(Bs @ part.T for part in pair(gn))                        # (Q, p): gn B_j
+            xU = (xs * U).sum(1)
+            dx[bb, c, :, hh] = (w[:, None] * U + D[hh].float() * dys
+                                + sum(part.T @ dys for part in pair(M)))
+            dcs = -w * xU
+            dcs[-1] += (w * xU).sum() + el * (sum(pair(gn)) * hin[bb, c, hh]).sum()
+            saved[hh] = (gn, dcs, to_end * xU)
+            part_D[bb, c, hh] = (dys * xs).sum()
+        for hh in heads:        # pass B: dB
+            xs, dys, dts, cs, L, G, dM = head(bb, c, hh, Bs, Cs)
+            gn, dcs, ddt_a = saved[hh]
+            w = torch.exp(cs[-1] - cs) * dts
+            K = dM * G * L
+            dB = dB + sum(part.T @ Cs for part in pair(dM * L * dts[None, :]))
+            dB = dB + w[:, None] * sum(xs @ part for part in pair(gn))
+            saved[hh] = (dcs - (K * dts[None, :]).sum(0), ddt_a + K.sum(0))
+        for hh in heads:        # pass C: dC, dcs, ddt, dA
+            dcs, ddt_a = saved[hh]
+            xs, dys, dts, cs, L, G, dM = head(bb, c, hh, Bs, Cs)
+            e = torch.exp(cs)
+            V = sum(dys @ part for part in pair(hin[bb, c, hh]))            # (Q, n): h_c^T dy_i
+            dC = dC + e[:, None] * V + sum(part @ Bs for part in pair(dM * L * dts[None, :]))
+            dcs = dcs + (dM * G * L * dts[None, :]).sum(1) + e * (V * Cs).sum(1)
+            da = torch.flip(torch.cumsum(torch.flip(dcs, [0]), dim=0), [0])
+            ddt[bb, c, :, hh] = ddt_a + A[hh].float() * da
+            part_A[bb, c, hh] = (dts * da).sum()
+        part_B[bb, c, :, hb], part_C[bb, c, :, hb] = dB, dC
+    # the fixed-order sums: a group's head blocks in order, the blocks in (batch, chunk) order
+    per = hb_n // g
+    part_B = part_B.reshape(b, nc, chunk, g, per, n)
+    part_C = part_C.reshape(b, nc, chunk, g, per, n)
     dB, dC = part_B[..., 0, :], part_C[..., 0, :]
-    for k in range(1, r):
+    for k in range(1, per):
         dB, dC = dB + part_B[..., k, :], dC + part_C[..., k, :]
     dA, dD = torch.zeros(h, device=dev), torch.zeros(h, device=dev)
     for k in range(b * nc):
@@ -377,9 +422,25 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def bwd_slots(device_index: int, p: int, n: int, chunk: int, dtype: torch.dtype) -> int:
+    """Backward blocks the card runs at once at (P, N, chunk) and dtype:
+    its SMs times the blocks an SM holds (the CUDA occupancy query)."""
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(p, n, chunk, DTYPE_CODES[dtype], ctypes.byref(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError("ssd_scan backward occupancy query failed: "
+                           f"{_error_string(err, 'ssd_scan_bwd')} ({per_sm.value} blocks an SM)")
+    return per_sm.value * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.cache
@@ -488,19 +549,28 @@ def ssd_scan_bwd_kernel(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, D: torch.Tensor, h_in: torch.Tensor, dy: torch.Tensor,
     dfinal: Optional[torch.Tensor] = None, *, chunk: int, drop_decay_grad: bool = False,
+    heads_per_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward kernel (``BWD_KERNELS`` launches on PyTorch's
     current stream): (dx, ddt, dA, dB, dC, dD, dh0) as
     :func:`ssd_scan_bwd_plain` returns them. ``dfinal`` None is a zero
     cotangent of the final state. ``drop_decay_grad`` drops the decays'
     cotangent (dcs = 0: ddt keeps its direct terms, dA is zero), a wrong
-    gradient for controls that must be caught. Raises on a CPU tensor, on
+    gradient for controls that must be caught. ``heads_per_block`` (a
+    divisor of H / G, at most ``MAX_HEADS_PER_BLOCK``) defaults to
+    :func:`bwd_heads_per_block` for this card. Raises on a CPU tensor, on
     an input it does not take, or if a launch fails."""
     global bwd_launches
     _check(x, dt, A, B, C, D, chunk, None)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = -(-s // chunk)
+    if heads_per_block is None:
+        heads_per_block = bwd_heads_per_block(
+            h, g, nc * b, bwd_slots(x.device.index, p, n, chunk, x.dtype))
+    if not (1 <= heads_per_block <= MAX_HEADS_PER_BLOCK and (h // g) % heads_per_block == 0):
+        raise ValueError(f"heads_per_block {heads_per_block} must divide the {h // g} heads of "
+                         f"a group and be at most {MAX_HEADS_PER_BLOCK}")
     wants = {"h_in": (h_in, (b, nc, h, p, n), torch.float32), "dy": (dy, x.shape, x.dtype)}
     if dfinal is not None:
         wants["dfinal"] = (dfinal, (b, h, p, n), torch.float32)
@@ -511,22 +581,26 @@ def ssd_scan_bwd_kernel(
                              f"{x.device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
     if dy.data_ptr() % 16:
         raise ValueError("dy must start on a 16-byte boundary")
+    if max(x.numel(), B.numel(), h_in.numel()) >= 2 ** 31:
+        raise ValueError("the backward kernel indexes x, B and the chunk states in 32 bits; "
+                         f"got {x.numel()}, {B.numel()} and {h_in.numel()} elements")
     dev = x.device
     dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     dA, dD = (torch.empty((h,), dtype=torch.float32, device=dev) for _ in range(2))
     dh0 = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)   # also the chain's slot
-    part_B, part_C = (torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
-                      for _ in range(2))                  # per-head partials
+    gsave = torch.empty_like(h_in)                        # gn of each chunk, for the dB pass
+    part_B, part_C = (torch.empty((b, s, h // heads_per_block, n), dtype=torch.float32,
+                                  device=dev) for _ in range(2))   # per head block
     part_A, part_D = (torch.empty((b, nc, h), dtype=torch.float32, device=dev)
-                      for _ in range(2))                  # per-block partials
+                      for _ in range(2))                  # per (batch, chunk, head)
     err = _bwd_kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
         h_in.data_ptr(), dy.data_ptr(), 0 if dfinal is None else dfinal.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), dh0.data_ptr(), part_B.data_ptr(), part_C.data_ptr(), part_A.data_ptr(),
-        part_D.data_ptr(), _sync_buffer(x, 1 + b * h).data_ptr(),
-        b, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype], int(drop_decay_grad),
+        dD.data_ptr(), dh0.data_ptr(), gsave.data_ptr(), part_B.data_ptr(), part_C.data_ptr(),
+        part_A.data_ptr(), part_D.data_ptr(), _sync_buffer(x, 1 + b * h).data_ptr(),
+        b, s, h, p, g, n, chunk, heads_per_block, DTYPE_CODES[x.dtype], int(drop_decay_grad),
         torch.cuda.current_stream().cuda_stream,
     )
     if err:

@@ -43,10 +43,12 @@ oracle. The SSD backward kernel (training) is held against
 ssd_scan_bwd_plain at the three built (P, N, chunk), ragged last chunks,
 one and two groups, with and without an initial state and a cotangent of
 the final state, and over 128 chunks (float32 3e-4, bfloat16 2e-2, both
-also times each gradient's largest magnitude as atol), and to bitwise
-repeatability; the forward writing its chunk states leaves y and the final
-state unchanged bit for bit; no instantiation spills and the bf16 ones hold
-HMMA; ops.ssd_scan under autograd on the card runs SsdScanFn, whose
+also times each gradient's largest magnitude as atol), with 1, 2 and 4
+heads a block, and to bitwise repeatability at the card's plan of heads a
+block and at 4; the plan at phase T's shapes (one block an SM, whole
+waves); the forward writing its chunk states leaves y and the final
+state unchanged bit for bit; no instantiation spills, and the bf16 ones
+hold more HMMA than the simple kernel's; ops.ssd_scan under autograd on the card runs SsdScanFn, whose
 gradients are the plain backward's; and the decode entries raise under
 autograd on the card.
 """
@@ -737,22 +739,64 @@ def test_ssd_bwd_kernel_matches_plain(cuda_device, case, dtype):
     _close_grads(got, ssd.ssd_scan_bwd_plain(*args, h_in, dy, df, chunk=chunk), dtype)
 
 
+@pytest.mark.parametrize("case", [SSD_BWD_CASES[1], SSD_BWD_CASES[3], SSD_BWD_CASES[5]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads_per_block", [1, 2, 4])
+def test_ssd_bwd_kernel_heads_per_block(cuda_device, case, dtype, heads_per_block):
+    """A block takes 1, 2 or all 4 heads of a group in turn (dB and dC summed
+    over its heads in order, then over the group's head blocks): each
+    against ssd_scan_bwd_plain, at two groups of the three built shapes,
+    with an initial state or a cotangent of the final state; the flags left
+    zero."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, g, n, chunk, with_h0, with_df = case
+    args, h0, dy, df = _ssd_bwd_inputs(np.random.default_rng(44), b, s, h, p, g, n, chunk, dtype,
+                                       with_h0, with_df, cuda_device)
+    _, _, h_in = ssd.ssd_scan_kernel(*args, chunk=chunk, initial_state=h0,
+                                     return_chunk_states=True)
+    got = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=chunk,
+                                  heads_per_block=heads_per_block)
+    torch.cuda.synchronize()
+    assert not ssd._syncs[cuda_device.index or 0].any()
+    _close_grads(got, ssd.ssd_scan_bwd_plain(*args, h_in, dy, df, chunk=chunk), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [1, 2])
-def test_ssd_bwd_kernel_is_bitwise_repeatable(cuda_device, dtype, g):
-    """The reverse chain adds the cotangents in chunk order, and dB, dC, dA
-    and dD are summed from partials in index order: two calls are equal bit
-    for bit, at 80 heads over one group and over two."""
+@pytest.mark.parametrize("heads_per_block", [None, 4])
+def test_ssd_bwd_kernel_is_bitwise_repeatable(cuda_device, dtype, g, heads_per_block):
+    """The reverse chain adds the cotangents in chunk order, each block sums
+    its heads in head order, and dB, dC, dA and dD are summed from partials
+    in index order: two calls are equal bit for bit, at 80 heads over one
+    group and over two, with the card's plan of heads a block and with 4."""
     from repro_torch.kernels import ssd_scan as ssd
 
     args, h0, dy, df = _ssd_bwd_inputs(np.random.default_rng(41), 2, 1000, 80, 64, g, 128, 128,
                                        dtype, True, True, cuda_device)
     _, _, h_in = ssd.ssd_scan_kernel(*args, chunk=128, initial_state=h0,
                                      return_chunk_states=True)
-    first = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128)
+    first = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128,
+                                    heads_per_block=heads_per_block)
     torch.cuda.synchronize()
-    again = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128)
+    again = ssd.ssd_scan_bwd_kernel(*args, h_in, dy, df, chunk=128,
+                                    heads_per_block=heads_per_block)
     assert all(torch.equal(a, f) for a, f in zip(again, first, strict=True))
+
+
+def test_ssd_bwd_plan_at_phase_t_shapes(cuda_device):
+    """One backward block an SM at chunk 128, and the plan of heads a block
+    at the training steps' shapes: a divisor of the group's heads, whose
+    blocks fill whole waves of the card's SMs."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for p, n, h in ((64, 128, 80), (64, 64, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            slots = ssd.bwd_slots(cuda_device.index or 0, p, n, 128, dtype)
+            assert slots == sms, (p, n, dtype, slots, sms)
+        r = ssd.bwd_heads_per_block(h, 1, 4 * 4, sms)
+        assert h % r == 0 and 4 * 4 * h // r <= sms, (h, r, sms)
 
 
 @pytest.mark.parametrize("shape", [(1, 19, 80, 64, 1, 128, 128), (2, 300, 8, 64, 2, 64, 128),
@@ -788,16 +832,27 @@ def test_ssd_bwd_kernel_spills_nothing(cuda_device):
     assert all(r.get("spill_bytes", 0) == 0 for r in report), report
 
 
+# HMMA instructions in the bf16 backward of the simple kernel (C B^T and dy
+# x^T alone on the tensor cores), per (Q, P, N) in the kernel's template
+# order; every product of the redesigned kernel runs there
+SIMPLE_KERNEL_HMMA = {"32, 32, 16": 3, "128, 64, 64": 8, "128, 64, 128": 12}
+
+
 def test_ssd_bwd_bf16_kernels_run_on_the_tensor_cores(cuda_device):
-    """cuobjdump -sass of the built library: C B^T and dy x^T put HMMA
-    instructions in the bf16 backward kernel at every built shape."""
+    """cuobjdump -sass of the built library: every product of the bf16
+    backward kernel (C B^T, dy x^T, M^T dy, dG^T C, dG B, the chain term and
+    the state terms) puts HMMA instructions in it at every built shape,
+    more than the simple kernel had."""
     from repro_torch.kernels import ssd_scan as ssd
 
     _build.build(("ssd_scan_bwd",))
     hmma = _build.sass_hmma(_build.library_path("ssd_scan_bwd"))
     assert hmma is not None, "the toolkit has no cuobjdump"
     bf16 = {fn: k for fn, k in hmma.items() if "ssd_bwd_kernel<__nv_bfloat16" in fn}
-    assert len(bf16) == len(ssd.SHAPES) and all(k > 0 for k in bf16.values()), hmma
+    assert len(bf16) == len(ssd.SHAPES), hmma
+    for shape, simple in SIMPLE_KERNEL_HMMA.items():
+        got = [k for fn, k in bf16.items() if shape in fn]
+        assert len(got) == 1 and got[0] > simple, (shape, hmma)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

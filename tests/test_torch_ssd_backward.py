@@ -22,13 +22,18 @@ alone, and JAX's gradient is NaN there. The port evaluates the exp only on
 or below the diagonal.
 
 ``ssd_scan_bwd_tiled_plain`` (the backward kernel's algorithm: a block per
-(chunk, head, batch) in reverse ticket order, the chain's slot updated in
-place, per-head partials of dB and dC and per-block partials of dA and dD
-summed in index order) is held against the same at float32 (3e-4) and on
-bf16 inputs, with the kernel's rounding of its outputs (2e-2, chip_smoke's
-bf16 tolerance), and to bitwise repeatability. The kernel itself is held
-on the card (tests/test_torch_kernels_cuda.py).
+(chunk, block of heads of one group, batch) in reverse ticket order, taking
+its heads in turn, the chain's slot updated in place, one partial of dB and
+of dC per block of heads and per-head partials of dA and dD, summed in
+index order) is held against the same at float32 (3e-4), one head a block
+and a whole group a block, and on bf16 inputs with the kernel's rounding
+(its f32 operands as bf16 hi + lo pairs, its outputs rounded once; 2e-2,
+chip_smoke's bf16 tolerance), and to bitwise repeatability.
+``bwd_heads_per_block`` picks the heads a block takes. The kernel itself is
+held on the card (tests/test_torch_kernels_cuda.py).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -156,50 +161,82 @@ def test_bwd_plain_matches_autograd_where_jax_overflows(n):
     leaves = [t[k].clone().requires_grad_() for k in ("x", "dt", "A", "B", "C", "D", "h0")]
     y, final = ssd.ssd_scan_plain(*leaves[:6], chunk=128, initial_state=leaves[6])
     want = torch.autograd.grad((y * t["dy"]).sum() + (final * t["dfinal"]).sum(), leaves)
-    for fn in (ssd.ssd_scan_bwd_plain, ssd.ssd_scan_bwd_tiled_plain):
+    for fn in (ssd.ssd_scan_bwd_plain,
+               functools.partial(ssd.ssd_scan_bwd_tiled_plain, heads_per_block=2)):
         got = _bwd(fn, t, 128)
         assert all(torch.isfinite(x).all() for x in got)
         _close(got, [w.numpy() for w in want], TOL["float32"])
 
 
+@pytest.mark.parametrize("whole_group", [False, True])
 @pytest.mark.parametrize("case", CASES)
-def test_bwd_tiled_plain_matches_jax_and_the_plain_backward(case):
+def test_bwd_tiled_plain_matches_jax_and_the_plain_backward(case, whole_group):
+    """One head a block, and every head of a group in one block (its dB
+    and dC summed over the heads in order before the group's sum)."""
     b, s, h, p, g, n, chunk, with_h0, with_df = case
     d = _inputs(b, s, h, p, g, n, with_h0, with_df, seed=s + h + 1, dt_max=DT_MAX[chunk])
     t = _torch(d)
-    got = _bwd(ssd.ssd_scan_bwd_tiled_plain, t, chunk)
+    tiled = functools.partial(ssd.ssd_scan_bwd_tiled_plain,
+                              heads_per_block=h // g if whole_group else 1)
+    got = _bwd(tiled, t, chunk)
     _close(got, _jax_grads(d, chunk), TOL["float32"])
     _close(got, [w.numpy() for w in _bwd(ssd.ssd_scan_bwd_plain, t, chunk)], TOL["float32"])
 
 
 @pytest.mark.parametrize("case", [CASES[1], CASES[4]])
 def test_bwd_tiled_plain_with_the_kernels_bf16_rounding(case):
-    """bf16 x, B, C and dy: the kernel's products take them as they are and
-    sum in f32, and it rounds dx, dB and dC to bf16 once; against jax.vjp
-    on the same values in f32."""
+    """bf16 x, B, C and dy: the kernel's products take them as they are,
+    its f32 operands (M, dG, gn, the chunk states and exp(cs) dy) as bf16
+    hi + lo pairs, and sum in f32; it rounds dx, dB and dC to bf16 once.
+    Against jax.vjp on the same values in f32 and against the plain
+    backward, with a group's heads in one block."""
     b, s, h, p, g, n, chunk, with_h0, with_df = case
     d = _inputs(b, s, h, p, g, n, with_h0, with_df, seed=7, dtype="bfloat16",
                 dt_max=DT_MAX[chunk])
-    got = _bwd(ssd.ssd_scan_bwd_tiled_plain, _torch(d, torch.bfloat16), chunk)
+    t = _torch(d, torch.bfloat16)
+    tiled = functools.partial(ssd.ssd_scan_bwd_tiled_plain, heads_per_block=h // g)
+    got = _bwd(tiled, t, chunk)
     assert [x.dtype for x in got] == [torch.bfloat16, torch.float32, torch.float32,
                                       torch.bfloat16, torch.bfloat16, torch.float32,
                                       torch.float32]
     _close(got, _jax_grads(d, chunk), TOL["bfloat16"])
+    _close(got, [w.float().numpy() for w in _bwd(ssd.ssd_scan_bwd_plain, t, chunk)],
+           TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("fn", [ssd.ssd_scan_bwd_plain, ssd.ssd_scan_bwd_tiled_plain])
-def test_bwd_is_bitwise_repeatable(fn):
-    """The chain runs in ticket order and the group and block sums in index
-    order: two calls are equal bit for bit."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", [ssd.ssd_scan_bwd_plain, ssd.ssd_scan_bwd_tiled_plain,
+                                functools.partial(ssd.ssd_scan_bwd_tiled_plain,
+                                                  heads_per_block=2)])
+def test_bwd_is_bitwise_repeatable(fn, dtype):
+    """The chain runs in ticket order, each block sums its heads in head
+    order and the group and block sums run in index order: two calls are
+    equal bit for bit, with one head a block and with two."""
     d = _inputs(2, 70, 4, 32, 2, 16, True, True, seed=3)
-    t = _torch(d)
+    t = _torch(d, dtype)
     first, again = _bwd(fn, t, 32), _bwd(fn, t, 32)
     assert all(torch.equal(a, f) for a, f in zip(again, first, strict=True))
 
 
+def test_bwd_heads_per_block_divides_the_group_and_fills_the_card():
+    """A divisor of the group's heads, at most MAX_HEADS_PER_BLOCK; at
+    phase T's shapes one wave of 128 blocks on 132 SMs (mamba2-2.7b's 80
+    heads 10 a block, zamba2-1.2b's 64 heads 8 a block); where more blocks
+    than that fit a wave, one head a block."""
+    for h, g, per_head, slots in ((80, 1, 16, 132), (64, 1, 16, 132), (4, 1, 16, 528),
+                                  (8, 2, 4, 132), (7, 1, 3, 132), (256, 1, 1, 1), (6, 3, 5, 1)):
+        r = ssd.bwd_heads_per_block(h, g, per_head, slots)
+        assert (h // g) % r == 0 and 1 <= r <= ssd.MAX_HEADS_PER_BLOCK, (h, g, r)
+    assert ssd.bwd_heads_per_block(80, 1, 16, 132) == 10
+    assert ssd.bwd_heads_per_block(64, 1, 16, 132) == 8
+    assert ssd.bwd_heads_per_block(4, 1, 16, 528) == 1
+    assert ssd.bwd_heads_per_block(256, 1, 1, 1) == 16
+
+
 def test_bwd_ticket_order_runs_each_chunk_after_the_next():
-    """Every (chunk, head, batch) draws one ticket, and every block of chunk
-    c + 1 draws before any block of chunk c (the chain's waits point back)."""
+    """Every (chunk, head block, batch) draws one ticket, and every block of
+    chunk c + 1 draws before any block of chunk c (the chain's waits point
+    back)."""
     nc, h, b = 3, 5, 2
     blocks = [ssd.bwd_ticket_block(t, nc, h, b) for t in range(nc * h * b)]
     assert sorted(blocks) == sorted((c, hh, bb) for c in range(nc) for hh in range(h)
