@@ -46,7 +46,9 @@ Phases, one line of output each (or more):
      beside its bound, the plain backward and, for reference only, autograd
      over ssd_scan_plain;
   3. each serving path at full width (bf16, random weights from a seed)
-     through the speculative agent loop, speculation off then on, with the
+     through the speculative agent loop (2 episodes; 3 until phase D came,
+     the cut that keeps the whole run inside its time), speculation off then
+     on, with the
      kernels' launch counts over that run and the profiles of a batched
      decode step and of a 19-token prefill: qwen2-7b (28 layers; flash and
      decode attention); qwen2-7b sequence-sharded over a local mesh of 4
@@ -119,9 +121,42 @@ Phases, one line of output each (or more):
      pass at K = 12, 96, 768 and 3072 candidates: ``admit_beam`` on the
      card (host wall, and device time and launches from torch.profiler),
      ``_admit_numpy`` on the host and ``score_beam`` per call;
+  D. multi-device over torch.distributed (``launch.dist.spawn``): ranks
+     that share the card, every one on cuda:0, their collectives over gloo
+     (the card's name and power limit first; one JSON line per check,
+     printed by rank 0). In one spawn of 4 ranks: D1, full-width qwen2-7b
+     (rank 0 makes the weights and hands them to the others by CUDA IPC, one
+     copy on the card), the cache sequence-sharded over the 4 ranks (each
+     holds 48 of 192 rows), bf16 then int8, serving one episode of the
+     speculative agent loop in lockstep: per rank the partials kernel's
+     launches a step (28), collectives and staged host copies a step, host
+     ms a step and the loop's summary (all equal); then a 100-token prefill
+     and 6 greedy steps against the single-process LocalMesh and unsharded
+     paths on log-softmax, under phase 4's bound (the unsharded kernels
+     against the oracle path); D2, full-width qwen3-moe-30b-a3b (61 GB,
+     shared the same way), expert parallel over the 4 ranks (32 experts
+     each), then expert TP over 3 of them (128 % 3 != 0, d_ff 768 / 3), a
+     19-token prefill and 4 decode steps at capacity factor E / k against
+     the single-process MoE on log-softmax within its kernel-vs-oracle gap,
+     drop_frac equal call for call, and the card's memory in use; D4,
+     elastic restore of a reduced MoE model's state (a chip call's disk cap
+     leaves no room for a full-width checkpoint beside phase T's): saved
+     from the 4 ranks (one expert each), restored onto 2 (two each),
+     bitwise. Then D3, full-width musicgen-medium data parallel over 2
+     ranks, each with its own 21.8 GB of training state: one step's
+     gradients (2 of the 4 x 128 rows a rank, summed over the ranks)
+     against the single-process step on the whole batch, computed first
+     (TRAIN_BOUND: loss, grad norm, leaves), after a control (each rank on
+     its own half, no reduce) that must miss it and compressed_grad_sync
+     over a 2-rank pod axis on those per-rank gradients (within 2 % of their
+     exact mean, every rank equal); that step's update, then a second
+     through train_step, each step's loss and grad norm against the single
+     process's; the flash forward and backward kernels on each rank;
   5. one JSON line on the kernels, six of them (the backward kernels with
      phase T's launches, the forward kernels with their training launches
-     beside the serving counts); last, one JSON line on the device.
+     beside the serving counts, every kernel with phase D's launches summed
+     over the ranks as ``dist_launches``); last, one JSON line on the
+     device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -1602,6 +1637,442 @@ def runtime_phase(device="cuda"):
     print(f"phase R: {time.time() - t0:.1f} s", flush=True)
 
 
+# ---- phase D: multi-device over torch.distributed, ranks that share the card ----
+
+D_RANKS = 4
+
+
+def _card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def _d_print(rank, what, row):
+    """One JSON line of phase D, printed by rank 0."""
+    if rank == 0:
+        print(f"phase D {what}: {json.dumps(row)}", flush=True)
+
+
+def _d_gather(row):
+    """Every rank's ``row``, in rank order, on every rank."""
+    import torch.distributed as dist
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, row)
+    return rows
+
+
+def _d_shared(rank, queue, make):
+    """Rank 0 makes a tree on the card and hands it to every other rank by
+    CUDA IPC through ``queue`` (one copy on the card, mapped by all)."""
+    import torch.distributed as dist
+    if rank == 0:
+        tree = make()
+        torch.cuda.synchronize()
+        for _ in range(dist.get_world_size() - 1):
+            queue.put(tree)
+        return tree
+    return queue.get()
+
+
+def _d_release(rank, what):
+    """After every rank has dropped its references to a shared tree: the
+    memory goes back to the card (rank 0, which made it, frees it last),
+    and every rank holds less than 1 GB."""
+    import gc
+
+    import torch.distributed as dist
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    held = _d_gather(torch.cuda.memory_allocated() / 1e9)
+    _d_print(rank, f"{what} released, GB allocated per rank", held)
+    assert max(held) < 1.0, held
+
+
+def _d_lsm(lg, cfg):
+    return torch.log_softmax(lg[:, :cfg.vocab_size].float(), dim=-1)
+
+
+def _d_decode(M, params, cfg, prompt, mesh_info, steps, feed=None):
+    """A prefill of ``prompt`` then ``steps`` decode steps (of ``feed``, or
+    greedy): the log-softmax of every step's logits and the tokens fed."""
+    dev = params["embed"].device
+    lg, cache = M.prefill(params, cfg, {"tokens": torch.tensor([prompt], device=dev)},
+                          max_len=192, mesh_info=mesh_info)
+    out, fed = [_d_lsm(lg, cfg)], []
+    for i in range(steps):
+        tok = torch.argmax(lg, -1) if feed is None else torch.tensor([feed[i]], device=dev)
+        fed.append(int(tok[0]))
+        lg, cache = M.decode_step(params, cfg, cache, tok, mesh_info=mesh_info)
+        out.append(_d_lsm(lg, cfg))
+    return torch.cat(out), fed
+
+
+def _d_max_diff(a, b):
+    return (a - b).abs().max().item()
+
+
+def _phase_d_ranks(rank, mesh, queue, ckpt_dir):
+    """D1, D2 and D4 on one rank of a (1, 4) mesh of ranks sharing the card."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.core.patterns import PatternEngine
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_dist_mesh, make_local_mesh
+    from repro_torch.launch.serve import serve_agent_loop
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import optimizer as opt_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    mi = M.mesh_context(mesh)
+    launches = {name: 0 for name in counters}
+
+    def zero():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        mesh.counts.update(collectives=0, staged_copies=0)
+
+    def read():
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    # ---- D1: qwen2-7b at full width, the cache sequence-sharded over 4 ranks
+    cfg = get_config("qwen2-7b")
+    t0 = time.time()
+    params = _d_shared(rank, queue, lambda: M.init_params(
+        cfg, torch.Generator(device=mesh.device).manual_seed(SEED), device=mesh.device))
+    _d_print(rank, f"D1 {cfg.name} weights shared by CUDA IPC", {
+        "params_gb": sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9,
+        "seconds": time.time() - t0})
+    pe = PatternEngine(context_len=2, min_support=3).fit(
+        episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
+    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=1))
+    bound = None
+    for kv in ("bfloat16", "int8"):
+        c = dataclasses.replace(cfg, sharded_decode_attn=True, kv_cache_dtype=kv)
+        eng = ServingEngine(c, params, max_batch=4, max_len=192, mesh_info=mi,
+                            device=mesh.device)
+        leaf = eng.cache["k"][0] if kv == "int8" else eng.cache["k"]
+        assert leaf.shape[2] == 192 // D_RANKS, leaf.shape       # this rank's slice
+        if kv == "bfloat16":                 # warm-up, once
+            serve_agent_loop(False, c, eng, episodes, pe, reason_tokens=1)
+        zero()
+        steps0 = eng.steps_executed
+        dt, _, hits, spec = serve_agent_loop(True, c, eng, episodes, pe)
+        torch.cuda.synchronize()
+        n = eng.steps_executed - steps0
+        counts = read()
+        for name in ("decode_attention_partials", "flash_attention"):
+            launches[name] += counts[name]
+        row = {"rank": rank, "engine_steps": n, "launches": counts,
+               "partials_launches_per_step": counts["decode_attention_partials"] / n,
+               "collectives_per_step": mesh.counts["collectives"] / n,
+               "staged_copies_per_step": mesh.counts["staged_copies"] / n,
+               "host_ms_per_step": dt / n * 1e3,
+               "summary": [n, spec.admitted, spec.promotions, spec.preemptions, hits],
+               "tokens": [list(s.tokens) for s in eng.slots]}
+        rows = _d_gather(row)
+        for r in rows:
+            _d_print(rank, f"D1 {cfg.name} sharded x{D_RANKS} ranks, {kv} cache, agent loop",
+                     {k: v for k, v in r.items() if k != "tokens"})
+            assert r["launches"]["decode_attention_partials"] == cfg.n_layers * n > 0, r
+            assert r["launches"]["decode_attention"] == 0, r
+            assert r["collectives_per_step"] == 3 * cfg.n_layers, r
+            assert r["staged_copies_per_step"] == 0, r
+            assert r["summary"] == rows[0]["summary"] and r["tokens"] == rows[0]["tokens"], r
+        assert spec.admitted > 0, "speculation admitted no slot"
+        del eng, spec        # the speculator holds the engine, which holds the weights
+
+        # the logits of a 100-token prompt (its keys on 3 of the 4 ranks' slices)
+        # and 6 greedy steps, against the single-process paths on rank 0
+        lsm, fed = _d_decode(M, params, c, list(range(5, 105)), mi, 6)
+        if rank == 0:
+            local = M.mesh_context(make_local_mesh(D_RANKS, device=mesh.device))
+            plain = dataclasses.replace(c, sharded_decode_attn=False)
+            lsm_local, _ = _d_decode(M, params, c, list(range(5, 105)), local, 6, fed)
+            lsm_plain, _ = _d_decode(M, params, plain, list(range(5, 105)), None, 6, fed)
+            if bound is None:     # phase 4's bound: the unsharded bf16 kernels against the oracle
+                ref = dataclasses.replace(cfg, attn_impl="ref")
+                lsm_ref, _ = _d_decode(M, params, ref, list(range(5, 105)), None, 6, fed)
+                lsm_bf16, _ = _d_decode(M, params, cfg, list(range(5, 105)), None, 6, fed)
+                bound = _d_max_diff(lsm_bf16, lsm_ref)
+            errs = {"vs LocalMesh sharded": _d_max_diff(lsm, lsm_local),
+                    "vs unsharded": _d_max_diff(lsm, lsm_plain), "bound": bound}
+            _d_print(rank, f"D1 {cfg.name} {kv} cache, max |log-softmax difference| over a "
+                           f"100-token prefill and 6 steps", errs)
+            assert max(errs["vs LocalMesh sharded"], errs["vs unsharded"]) <= bound, errs
+        dist.barrier()
+    del params
+    _d_release(rank, f"D1 {cfg.name} weights")
+
+    # ---- D2: qwen3-moe-30b-a3b at full width, expert parallel over 4 ranks,
+    # expert TP over 3; capacity E / k (no slot drops)
+    cfg = get_config("qwen3-moe-30b-a3b")
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=E / k))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = _d_shared(rank, queue, lambda: M.init_params(
+        cfg, torch.Generator(device=mesh.device).manual_seed(SEED), device=mesh.device))
+    _d_print(rank, f"D2 {cfg.name} weights shared by CUDA IPC", {
+        "params_gb": sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9,
+        "seconds": time.time() - t0})
+    drops, real_moe = [], moe_mod.moe_forward
+
+    def recording(p, x, *a, **kw):
+        y, aux = real_moe(p, x, *a, **kw)
+        drops.append(float(aux["drop_frac"]))
+        return y, aux
+
+    prompt = list(range(5, 24))                        # 19 tokens, a speculative prefill
+    moe_mod.moe_forward = recording
+    try:
+        reference = None
+        if rank == 0:     # the single-process MoE, kernels and oracle
+            lsm_one, fed = _d_decode(M, params, free, prompt, None, 4)
+            drops_one = list(drops)
+            lsm_ref, _ = _d_decode(M, params, dataclasses.replace(free, attn_impl="ref"),
+                                   prompt, None, 4, fed)
+            reference = (fed, _d_max_diff(lsm_one, lsm_ref))
+        box = [reference]
+        dist.broadcast_object_list(box, src=0)
+        fed, bound = box[0]
+        tp_mesh = make_dist_mesh(3, ranks=[0, 1, 2], device=mesh.device)
+        for label, m in (("expert parallel x4", mesh), ("expert TP x3", tp_mesh)):
+            if m is not None:
+                mi_m = M.mesh_context(m)
+                local = sh.shard_tree(params, sh.rank_param_specs(free, m), m)
+                zero()
+                drops.clear()
+                lsm, _ = _d_decode(M, local, free, prompt, mi_m, 4, fed)
+                counts = read()
+                for name in ("flash_attention", "decode_attention"):
+                    launches[name] += counts[name]
+                held = list(local["blocks"][0]["moe"]["w_gate"].shape)
+                row = {"rank": rank, "experts_held": held, "launches": counts,
+                       "collectives": m.counts["collectives"],
+                       "staged_copies": m.counts["staged_copies"], "drop_frac": drops[:],
+                       "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+                if rank == 0:
+                    row["vs single process"] = _d_max_diff(lsm, lsm_one)
+                    row["bound"] = bound
+                    assert drops == drops_one, (drops, drops_one)
+                    assert row["vs single process"] <= bound, row
+                assert counts["flash_attention"] == cfg.n_layers, counts
+                assert counts["decode_attention"] == 4 * cfg.n_layers, counts
+                del local
+            rows = _d_gather(row if m is not None else None)
+            for r in rows:
+                if r is not None:
+                    _d_print(rank, f"D2 {cfg.name} {label}, a 19-token prefill and 4 steps at "
+                                   f"capacity factor {free.moe.capacity_factor}", r)
+        free_b, total_b = torch.cuda.mem_get_info()
+        _d_print(rank, f"D2 {cfg.name} device memory in use", {
+            "used_gb": (total_b - free_b) / 1e9, "total_gb": total_b / 1e9,
+            "peak_allocated_gb_per_rank": [r["peak"] for r in _d_gather(
+                {"peak": torch.cuda.max_memory_allocated() / 1e9})]})
+    finally:
+        moe_mod.moe_forward = real_moe
+    del params
+    _d_release(rank, f"D2 {cfg.name} weights")
+
+    # ---- D4: elastic restore, reduced (the disk cap; see the docstring): a
+    # reduced MoE model's state saved from 4 ranks, restored onto 2
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    params = M.init_params(cfg, torch.Generator(device=mesh.device).manual_seed(SEED),
+                           device=mesh.device)
+    opt = opt_mod.init_opt_state(params)
+
+    def specs_on(m):
+        p = sh.rank_param_specs(cfg, m)
+        return {"params": p, "opt": {"m": p, "v": p, "step": sh.P()}}
+
+    state = {"params": params, "opt": opt}
+    t0 = time.time()
+    path = ck.save(sh.shard_tree(state, specs_on(mesh), mesh), ckpt_dir, 1, mesh=mesh,
+                   spec_tree=specs_on(mesh))
+    two = make_dist_mesh(2, ranks=[0, 1], device=mesh.device)
+    row = None
+    if two is not None:
+        got = ck.restore(ckpt_dir, 1, state, mesh=two, spec_tree=specs_on(two))
+        want = sh.shard_tree(state, specs_on(two), two)
+        from repro_torch.tree import leaves
+        pairs = list(zip(leaves(got), leaves(want), strict=True))
+        row = {"rank": rank, "leaves": len(pairs),
+               "bitwise": all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+               "experts_held": list(got["params"]["blocks"][0]["moe"]["w_gate"].shape)}
+    rows = _d_gather(row)
+    _d_print(rank, f"D4 {cfg.name} saved from 4 ranks ({path}), restored onto 2",
+             {"rows": rows, "seconds": time.time() - t0})
+    assert all(r["bitwise"] for r in rows if r is not None), rows
+    return {"launches": launches}
+
+
+def _phase_d3_ranks(rank, mesh, batches, ref, steps_ref):
+    """D3 on one rank of a (2, 1) mesh: musicgen-medium data parallel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dist_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import compression as C
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = kernel_counters()
+    cfg = get_config("musicgen-medium")
+    mi = M.mesh_context(mesh)
+    dev = mesh.device
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt = opt_mod.init_opt_state(params)
+    tb = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+    layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+
+    def agreement(grads, metrics):
+        agree = {key: _grad_agreement(grads["blocks"][i]["attn"][w], ref["leaves"][key].to(dev))
+                 for key, (i, w) in ((f"{w}[{i}]", (i, w)) for i in layers
+                                     for w in ("wq", "wk", "wv"))}
+        loss, norm = float(metrics["loss"]), opt_mod.global_norm(grads).item()
+        return loss, norm, agree, _train_bound_misses(loss, ref["loss"], norm, ref["grad_norm"],
+                                                      agree)
+
+    # the control: each rank's own half, with no reduce, must miss the bound
+    rows = slice(2 * mesh.axis_index("data"), 2 * mesh.axis_index("data") + 2)
+    own, m_own = steps_mod.step_grads(params, cfg, {k: v[rows] for k, v in tb[0].items()})
+    _, _, _, misses = agreement(own, m_own)
+    _d_print(rank, f"D3 {cfg.name} control, each rank on its own half with no reduce",
+             {"outside TRAIN_BOUND": misses})
+    assert misses, "ranks that skip the gradient reduce passed TRAIN_BOUND"
+
+    # the int8 error-feedback sync over a 2-pod axis on those per-rank
+    # gradients (each rank's own mean), against their exact mean, a layer
+    # (and the leaves outside the layers) at a time
+    pods = make_dist_mesh(pod=2, device=dev)
+    worst, unequal = 0.0, 0
+    groups = [{k: v for k, v in own.items() if k != "blocks"}] + own["blocks"]
+    for i, group in enumerate(groups):
+        synced, _ = C.compressed_grad_sync(group, C.init_error_feedback(group), pods, axis="pod")
+        sizes = [t.numel() for t in _tensors(group)]
+        exact = pods.pmean(torch.cat([t.float().flatten() for t in _tensors(group)]), "pod")
+        got = torch.cat([t.float().flatten() for t in _tensors(synced)])
+        for e, g in zip(exact.split(sizes), got.split(sizes), strict=True):
+            worst = max(worst, ((g - e).abs().max() / e.abs().max()).item())
+        unequal += int((pods.pmax(got, "pod") != -pods.pmax(-got, "pod")).sum())
+        groups[i] = None
+    row = {"rank": rank, "max |synced - mean| / max |mean| over leaves": worst,
+           "elements unequal across ranks": unequal, "bytes (compressed, bf16 all-reduce)":
+           C.dcn_bytes(params, 2)}
+    for r in _d_gather(row):
+        _d_print(rank, f"D3 {cfg.name} compressed_grad_sync over 2 pods", r)
+    assert worst < 0.02 and unequal == 0, row
+    del own, groups
+
+    # two data-parallel steps; the first by hand, so that its gradients (this
+    # rank's 2 rows, summed over the ranks) are held against the single
+    # process's before the update, the second through train_step
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    mesh.counts.update(collectives=0, staged_copies=0)
+    oc = opt_mod.AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads, metrics = steps_mod.step_grads(params, cfg, tb[0], mi)
+    loss, norm, agree, misses = agreement(grads, metrics)
+    _d_print(rank, f"D3 {cfg.name} data parallel x2, one step's gradients against the single "
+                   f"process's", {"loss": [loss, ref["loss"]],
+                                  "grad_norm": [norm, ref["grad_norm"]], "leaves": agree,
+                                  "outside TRAIN_BOUND": misses})
+    assert not misses, misses
+    params, opt, om = opt_mod.apply_updates(params, grads, opt, oc)   # the model axis is 1
+    del grads
+    torch.cuda.synchronize()
+    recs = [{"loss": loss, "grad_norm": float(om["grad_norm"]),
+             "wall_s": time.perf_counter() - t0}]
+    t0 = time.perf_counter()
+    params, opt, m = steps_mod.train_step(params, opt, tb[1], cfg=cfg, opt_cfg=oc, mesh_info=mi)
+    torch.cuda.synchronize()
+    recs.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                 "wall_s": time.perf_counter() - t0})
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    row = {"rank": rank, "steps": recs, "single process": steps_ref, "launches": counts,
+           "collectives": mesh.counts["collectives"], "staged_copies": mesh.counts["staged_copies"],
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for r in _d_gather(row):
+        _d_print(rank, f"D3 {cfg.name} 2 data-parallel steps of 4 x 128", r)
+    for got, want in zip(recs, steps_ref, strict=True):
+        misses = _train_bound_misses(got["loss"], want["loss"], got["grad_norm"],
+                                     want["grad_norm"], {})
+        assert not misses, (recs, steps_ref, misses)
+    assert counts["flash_attention"] == 2 * (1 + cfg.remat) * cfg.n_layers, counts
+    assert counts["flash_attention_bwd"] == 2 * 3 * cfg.n_layers, counts
+    return {"launches": counts}
+
+
+def distributed_phase():
+    """Phase D (see the module's docstring); returns each kernel's launches
+    on its main paths, summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as torch_mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.dist import spawn
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import steps as steps_mod
+
+    print(f"phase D {_card_line()}: ranks over gloo, every one on cuda:0 "
+          f"({torch.cuda.device_count()} card)", flush=True)
+    totals = {}
+    torch.cuda.empty_cache()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="ckpt_d4_", dir=build) as ckpt_dir:
+        queue = torch_mp.get_context("spawn").SimpleQueue()
+        for res in spawn(_phase_d_ranks, D_RANKS, model_parallel=D_RANKS,
+                         args=(queue, ckpt_dir), timeout_s=600):
+            for name, n in res["launches"].items():
+                totals[name] = totals.get(name, 0) + n
+    print(f"phase D D1, D2, D4 on {D_RANKS} ranks: {time.time() - t0:.1f} s", flush=True)
+
+    # D3: the single-process step first, kept on the host, the card freed
+    t0 = time.time()
+    cfg = get_config("musicgen-medium")
+    dc = DataConfig(seed=0, seq_len=129, global_batch=4)
+    batches = [batch_at(cfg, dc, i) for i in (0, 1)]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    tb = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
+    grads, metrics = steps_mod.step_grads(params, cfg, tb[0])
+    layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+    ref = {"loss": float(metrics["loss"]), "grad_norm": opt_mod.global_norm(grads).item(),
+           "leaves": {f"{w}[{i}]": grads["blocks"][i]["attn"][w].cpu() for i in layers
+                      for w in ("wq", "wk", "wv")}}
+    del grads
+    opt = opt_mod.init_opt_state(params)
+    oc = opt_mod.AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=2)
+    steps_ref = []
+    for b in tb:
+        params, opt, m = steps_mod.train_step(params, opt, b, cfg=cfg, opt_cfg=oc)
+        steps_ref.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    del params, opt, tb
+    torch.cuda.empty_cache()
+    for res in spawn(_phase_d3_ranks, 2, args=(batches, ref, steps_ref), timeout_s=600):
+        for name, n in res["launches"].items():
+            totals[name] = totals.get(name, 0) + n
+    print(f"phase D D3 on 2 ranks: {time.time() - t0:.1f} s", flush=True)
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1781,7 +2252,9 @@ def main():
     # ---- phases 3-4: each serving path at full width ----------------------
     pe = PatternEngine(context_len=2, min_support=3).fit(
         episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
-    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=3))
+    # 2 episodes of the agent loop per model (3 until phase D was added: the
+    # cut that keeps the whole run near 1000 of its 1200 s)
+    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=2))
     counters = kernel_counters()
     launches = {}
 
@@ -1945,6 +2418,12 @@ def main():
     counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     assert not any(counts.values()), counts
 
+    # ---- phase D: multi-device over torch.distributed, ranks sharing the card
+    t0 = time.time()
+    dist_launches = distributed_phase()
+    print(f"phase D: {time.time() - t0:.1f} s; launches on its paths, summed over the ranks: "
+          f"{json.dumps(dist_launches)}", flush=True)
+
     # ---- phase 5: the kernels line; then the device line -----------------
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention.py:113",
@@ -1986,6 +2465,8 @@ def main():
     # the forward kernels' launches on the training paths (phase T), beside the serving counts
     kernels[0]["training_launches"] = launches["flash_attention_train"]
     kernels[3]["training_launches"] = launches["ssd_scan_train"]
+    for k in kernels:     # phase D's main paths, every rank's launches
+        k["dist_launches"] = dist_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

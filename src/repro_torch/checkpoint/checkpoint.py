@@ -17,8 +17,15 @@ manifest (float8 likewise as uint8).
 
 Fault-tolerance contract: a crash mid-write leaves only a .tmp directory;
 ``latest_step`` ignores it, so a restart resumes from the last COMMITTED
-step. Restoring onto a mesh (the elastic re-mesh of the JAX package) is
-not ported yet: ROADMAP Queue 1 item 8.
+step.
+
+Over a mesh of processes (``launch.mesh.DistMesh``) a checkpoint holds
+every leaf whole, in the same layout: ``save(..., mesh=, spec_tree=)``
+gathers every rank's blocks (``launch.shardings.gather_tree``) and rank 0
+of the mesh writes them while the others wait at a barrier, and
+``restore(..., mesh=, spec_tree=)`` gives each rank its block of every
+leaf. A mesh of another size than the one that saved restores the same
+way: the elastic re-mesh after a node is lost.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch import shardings
 from repro_torch.tree import leaves_with_paths, map_with_paths, path_key
 
 # the dtypes numpy cannot hold, kept as raw bits: logical name -> (torch
@@ -41,7 +49,6 @@ _VIEW_DTYPES = {
     "float8_e5m2": (torch.float8_e5m2, torch.uint8, np.uint8),
 }
 _VIEW_NAMES = {dtype: name for name, (dtype, _, _) in _VIEW_DTYPES.items()}
-_MESH_NOT_PORTED = "restoring onto a mesh is not ported yet (ROADMAP Queue 1 item 8)"
 
 
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -80,9 +87,20 @@ def _save_host(flat: Dict[str, Tuple[np.ndarray, str]], directory: str, step: in
     return final
 
 
-def save(tree, directory: str, step: int, *, extra: Optional[Dict] = None) -> str:
-    """Synchronous atomic save.  Returns the committed path."""
-    return _save_host(_host_tree(tree), directory, step, extra)
+def save(tree, directory: str, step: int, *, extra: Optional[Dict] = None, mesh=None,
+         spec_tree=None) -> Optional[str]:
+    """Synchronous atomic save.  Returns the committed path. With a
+    DistMesh, ``tree`` is this rank's blocks under ``spec_tree``: every
+    rank of the mesh calls this, rank 0 of the mesh writes the whole
+    leaves and returns the path, the others None once it is committed."""
+    if mesh is None:
+        return _save_host(_host_tree(tree), directory, step, extra)
+    tree = shardings.gather_tree(tree, spec_tree, mesh)
+    path = None
+    if mesh.axis_index(mesh.axis_names) == 0:
+        path = _save_host(_host_tree(tree), directory, step, extra)
+    mesh.barrier()
+    return path
 
 
 class AsyncCheckpointer:
@@ -135,18 +153,23 @@ def restore(directory: str, step: int, like_tree, *, device=None, mesh=None,
             spec_tree=None) -> Any:
     """Load a checkpoint into the structure of ``like_tree``, whose leaves
     (tensors, on any device, ``meta`` included) give each leaf's dtype.
-    Each leaf lands on ``device``, or on its like-leaf's device if None."""
-    if mesh is not None or spec_tree is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+    Each leaf lands on ``device``, or on its like-leaf's device if None.
+    With a DistMesh and ``spec_tree`` each rank gets its own block of every
+    leaf (a copy of that block alone), whatever mesh saved it."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
         flat = {k: data[k] for k in data.files}
 
+    specs = None if mesh is None else shardings.specs_by_path(like_tree, spec_tree)
+
     def load(p, like):
         key = path_key(p)
-        t = _to_tensor(flat[key], manifest["dtypes"][key])
+        arr = flat[key]
+        if specs is not None:      # this rank's block, a copy of its own
+            arr = np.array(shardings.block_of(arr, specs[p], mesh), order="C")
+        t = _to_tensor(arr, manifest["dtypes"][key])
         return t.to(device=like.device if device is None else device, dtype=like.dtype)
 
     return map_with_paths(load, like_tree)

@@ -31,6 +31,10 @@ and hand it to the loop::
     serve_agent_loop(True, cfg, engine, episodes, pattern_engine)
 
 (``kv_cache_dtype="int8"`` in the same ``replace`` gives the int8 cache.)
+Over a mesh of processes every rank builds the same engine with
+``mesh_info=mesh_context(make_dist_mesh(n))`` (``launch.mesh``,
+``models.model``) and runs the same loop: the ranks step in lockstep, each
+holding its slice of the cache, and sample the same tokens.
 """
 from __future__ import annotations
 

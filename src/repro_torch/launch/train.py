@@ -13,21 +13,37 @@ Usage (the full-width model on the card, or a reduced one on the CPU):
 Every family trains on the card: attention runs the hand-written forward
 and backward kernels (``kernels.flash_attention.FlashAttentionFn``), and
 the Mamba2 layers of the SSM and hybrid families the SSD scan's
-(``kernels.ssd_scan.SsdScanFn``). Training over a mesh
-(``--use-mesh``) is not ported yet: ROADMAP Queue 1 item 8.
+(``kernels.ssd_scan.SsdScanFn``).
+
+``--use-mesh`` (``use_mesh=True``) trains data parallel over a mesh of
+processes: every rank of the ``torch.distributed`` default group (already
+initialised, or launched by ``torchrun``, whose environment variables give
+the rendezvous) builds ``launch.mesh.make_dist_mesh()``, data parallel
+with a model axis of 1 as the JAX package's ``make_local_mesh()`` is, reads
+the same global batch the JAX package's single controller reads and takes
+its rows of it (``training.steps``). Rank 0 writes the checkpoints; a
+resume restores every rank's block onto the mesh (``checkpoint.restore``);
+each rank keeps its own step watchdog::
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen2-7b \
+      --reduced --device cpu --use-mesh --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt_mod
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import make_dist_mesh
 from repro_torch.models import model as model_mod
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training import steps as steps_mod
@@ -56,6 +72,21 @@ def _batch_on(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def _join_mesh(device):
+    """This rank's data-parallel mesh: over the initialised default group,
+    or over the one the ``torchrun`` environment describes (gloo on the
+    CPU, NCCL on the cards)."""
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError("use_mesh needs torch.distributed: launch the ranks with torchrun "
+                               "or launch.dist.spawn")
+        dist.init_process_group("gloo" if torch.device(device).type == "cpu" else "nccl")
+    mesh = make_dist_mesh(device=None if torch.device(device).type == "cuda" else device)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return mesh
+
+
 def train(
     arch: str, *, reduced: bool = True, steps: int = 20, seq_len: int = 128,
     global_batch: int = 4, ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
@@ -64,13 +95,18 @@ def train(
 ):
     """Train ``arch`` for ``steps`` steps (resuming from the latest
     checkpoint in ``ckpt_dir``, if any). Returns (params, opt_state, losses
-    of the steps run by this call)."""
-    if use_mesh:
-        raise NotImplementedError("training over a mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 8: multi-device)")
+    of the steps run by this call). With ``use_mesh``, every rank of the
+    mesh calls this alike (see the module's docstring)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    mesh = mi = specs = None
+    if use_mesh:
+        mesh = _join_mesh(device)
+        mi = model_mod.mesh_context(mesh)
+        device = mesh.device
+        pspecs = shardings.rank_param_specs(cfg, mesh)
+        specs = {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "step": shardings.P()}}
     device = torch.device(device)
     oc = opt_mod.AdamWConfig(lr=lr, total_steps=max(steps, 10),
                              warmup_steps=max(2, steps // 10))
@@ -84,7 +120,7 @@ def train(
             like_p = model_mod.init_params(cfg, torch.Generator(device="cpu"), device="meta")
             like_o = opt_mod.init_opt_state(like_p)
             state = ckpt_mod.restore(ckpt_dir, latest, {"params": like_p, "opt": like_o},
-                                     device=device)
+                                     device=device, mesh=mesh, spec_tree=specs)
             params, opt_state = state["params"], state["opt"]
             start = latest
             print(f"[train] resumed from step {latest}")
@@ -93,14 +129,20 @@ def train(
                                        device=device)
         opt_state = opt_mod.init_opt_state(params)
 
-    saver = ckpt_mod.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    if mesh is not None:    # every rank's block of the same initial state
+        params = shardings.shard_tree(params, specs["params"], mesh)
+        opt_state = shardings.shard_tree(opt_state, specs["opt"], mesh)
+    saver = None
+    if ckpt_dir and (mesh is None or mesh.rank == 0):
+        saver = ckpt_mod.AsyncCheckpointer(ckpt_dir)
     wd = StepWatchdog()
     losses = []
     for step in range(start, steps):
         t0 = time.time()
         batch = _batch_on(batch_at(cfg, dc, step), device)
         params, opt_state, metrics = steps_mod.train_step(
-            params, opt_state, batch, cfg=cfg, opt_cfg=oc, microbatches=microbatches)
+            params, opt_state, batch, cfg=cfg, opt_cfg=oc, mesh_info=mi,
+            microbatches=microbatches)
         loss = float(metrics["loss"])
         losses.append(loss)
         dt = time.time() - t0
@@ -116,6 +158,8 @@ def train(
         saver.save({"params": params, "opt": opt_state}, steps,
                    extra={"arch": arch, "loss": losses[-1]})
         saver.wait()
+    if mesh is not None:      # the checkpoint is committed before any rank returns
+        mesh.barrier()
     return params, opt_state, losses
 
 

@@ -2,11 +2,12 @@
 
 Ported: the plain (bf16 or f32) and the int8 KV cache, with or without a
 sliding window, the sequence-sharded split-KV decode
-(``attn_decode_sharded``) over a local mesh of shards on one device, and
-head padding: with ``cfg.head_pad_multiple`` the query and KV head counts
-are rounded up to ``cfg.eff_n_heads`` / ``cfg.eff_n_kv_heads``, the padded
-heads' columns of ``wq``/``wk``/``wv`` and rows of ``wo`` are zero, and the
-kernels see Hp query heads over KVp kv heads. A padded head's output never
+(``attn_decode_sharded``) over a local mesh of shards on one device or over
+a mesh of processes (``launch.mesh.DistMesh``), and head padding: with
+``cfg.head_pad_multiple`` the query and KV head counts are rounded up to
+``cfg.eff_n_heads`` / ``cfg.eff_n_kv_heads``, the padded heads' columns of
+``wq``/``wk``/``wv`` and rows of ``wo`` are zero, and the kernels see Hp
+query heads over KVp kv heads. A padded head's output never
 reaches the residual stream, so the padded model computes what the
 unpadded one does.
 
@@ -34,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import combine_partials
+from repro_torch.launch.mesh import on_ranks
 from repro_torch.models.common import apply_rope, dense_init
 
 
@@ -195,9 +197,11 @@ def _decode_plan(cfg: ModelConfig, lengths: torch.Tensor, smax: int):
 # The cache's sequence axis is cut into n_model shards of Smax / n_model
 # positions. Each shard attends over its own slice and only the per-head
 # softmax partials (m, l, acc) are combined. In the JAX package each shard
-# is a device of a shard_map; here the shards are views of one cache on one
-# card, the partials kernel runs once per shard, and pmax/psum become a max
-# and a sum over the shard axis.
+# is a device of a shard_map. Under a LocalMesh the shards are views of one
+# cache on one card, the partials kernel runs once per shard, and pmax/psum
+# become a max and a sum over the shard axis. Under a DistMesh each rank
+# holds its own slice and runs the kernel once, and pmax/psum are
+# collectives over the model axis's process group.
 # ======================================================================
 
 def attn_decode_sharded(
@@ -207,7 +211,12 @@ def attn_decode_sharded(
     """Decode with a sequence-sharded KV cache.  x (B,1,D); caches
     (B,Smax,KV,hd) (or int8 (values, scales) pairs) cut on axis 1 into
     ``mesh_info.n_model`` shards.  Returns out (B,1,D); the caches are
-    updated in place as in :func:`attn_decode`."""
+    updated in place as in :func:`attn_decode`. Under a DistMesh the caches
+    are this rank's slice (B, Smax / n_model, KV, hd) and x its rows
+    (:func:`_attn_decode_dist`)."""
+    if on_ranks(mesh_info):
+        return _attn_decode_dist(p, x, k_cache, v_cache, lengths, cfg, mesh_info, impl=impl,
+                                 active=active)
     b = x.shape[0]
     quant = cfg.kv_cache_dtype == "int8"
     smax = _cache_smax(k_cache)
@@ -245,14 +254,69 @@ def attn_decode_sharded(
     return o.reshape(b, 1, H * hd) @ p["wo"]
 
 
+def _attn_decode_dist(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor,
+                      cfg: ModelConfig, mesh_info, *, impl: str,
+                      active: Optional[torch.Tensor]) -> torch.Tensor:
+    """The shard_map body of the JAX package's ``attn_decode_sharded`` on
+    this rank of a DistMesh: the new row is written only where this rank's
+    slice holds its slot (``in_rng``, and for active rows), the partials
+    kernel runs once over the slice, and the partials are combined by a
+    pmax of m and psums of l and acc, each weighted by exp(m - pmax m), over
+    the model axis: every rank of the axis ends with the same output."""
+    b = x.shape[0]
+    mesh, ma = mesh_info.mesh, mesh_info.model_axis
+    quant = cfg.kv_cache_dtype == "int8"
+    chunk = _cache_smax(k_cache)
+    hd, H = cfg.resolved_head_dim, cfg.eff_n_heads
+    q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
+    qg = (q.float() * hd ** -0.5).contiguous()
+    slot, eff_len, win = _decode_plan(cfg, lengths, chunk * mesh_info.n_model)
+    off = mesh.axis_index(ma) * chunk
+    in_rng = (slot >= off) & (slot < off + chunk)
+    write = in_rng if active is None else in_rng & active
+    index = (torch.arange(b, device=x.device), torch.clamp(slot - off, 0, chunk - 1))
+    _append(k_cache, v_cache, k_new, v_new, index, write)
+    k_eff, v_eff = k_cache, v_cache
+    if quant:
+        k_eff, v_eff = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
+    acc, m, l = ops.decode_attention_partials(
+        qg, k_eff, v_eff, torch.clamp(eff_len - off, 0, chunk), scale=1.0, window=win,
+        impl=impl)
+    m_g = mesh.pmax(m, ma)
+    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    l_g = mesh.psum(l * coef, ma)
+    acc_g = mesh.psum(acc * coef[..., None], ma)
+    o = (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(x.dtype)
+    return o.reshape(b, 1, H * hd) @ p["wo"]
+
+
 def attn_decode_dispatch(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor,
                          cfg: ModelConfig, mesh_info, *, impl: str,
                          active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sharded split-KV path when enabled and applicable (the JAX
-    package's condition), else :func:`attn_decode`."""
-    if (cfg.sharded_decode_attn and mesh_info is not None
-            and mesh_info.n_model > 1
-            and _cache_smax(k_cache) % mesh_info.n_model == 0):
+    package's condition), else :func:`attn_decode`. Under a DistMesh the
+    cache is this rank's slice whenever :func:`seq_sharded` held for it."""
+    if on_ranks(mesh_info):
+        sharded = cfg.sharded_decode_attn and mesh_info.n_model > 1
+    else:
+        sharded = seq_sharded(cfg, mesh_info, _cache_smax(k_cache))
+    if sharded:
         return attn_decode_sharded(p, x, k_cache, v_cache, lengths, cfg, mesh_info,
                                    impl=impl, active=active)
     return attn_decode(p, x, k_cache, v_cache, lengths, cfg, impl=impl, active=active)
+
+
+def seq_sharded(cfg: ModelConfig, mesh_info, smax: int) -> bool:
+    """Whether a decode over a cache of ``smax`` rows runs sequence-sharded
+    under ``mesh_info`` (the JAX package's condition). Under a DistMesh each
+    rank then holds Smax / n_model rows of every K/V cache; an Smax that
+    does not divide is refused there (a rank's slice would not say which
+    layout it is in)."""
+    if not (cfg.sharded_decode_attn and mesh_info is not None and mesh_info.n_model > 1):
+        return False
+    if smax % mesh_info.n_model == 0:
+        return True
+    if on_ranks(mesh_info):
+        raise ValueError(f"the sequence-sharded decode over {mesh_info.n_model} ranks needs a "
+                         f"cache of a multiple of {mesh_info.n_model} rows, not {smax}")
+    return False

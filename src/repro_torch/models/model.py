@@ -1,10 +1,10 @@
 """Top-level model: init / full-sequence forward / prefill / decode.
 
-Ported: every family of the JAX package: dense, MoE (the local path), SSM
-(Mamba2), hybrid (zamba2: Mamba2 + shared attention), and the vlm and audio
-backbones with their embedding frontends, with or without head padding.
-Two variants raise NotImplementedError: a hybrid with an int8 KV cache,
-and the MoE family under ``mesh_info`` (the expert-parallel path).
+Ported: every family of the JAX package: dense, MoE, SSM (Mamba2), hybrid
+(zamba2: Mamba2 + shared attention), and the vlm and audio backbones with
+their embedding frontends, with or without head padding, on one device or
+over a mesh. One variant raises NotImplementedError: a hybrid with an int8
+KV cache.
 
 Design notes
 ------------
@@ -32,10 +32,22 @@ Design notes
   ``k``/``v`` are ``(G, B, max_len, KV, hd)``, one per application of the
   shared block), plus ``lengths`` (B,) int32.
   :func:`decode_step` updates them in place.
-* **meshes**: :class:`MeshContext` describes a mesh of sequence shards
-  (``launch.mesh.make_local_mesh``); with ``cfg.sharded_decode_attn`` a
-  decode step cuts each layer's cache into ``n_model`` shards
-  (``attention.attn_decode_dispatch``).
+* **meshes**: :class:`MeshContext` describes a mesh (:func:`mesh_context`).
+  Over a ``launch.mesh.LocalMesh`` (shards held by this process on one
+  device) a decode step with ``cfg.sharded_decode_attn`` cuts each layer's
+  cache into ``n_model`` shards (``attention.attn_decode_dispatch``), and
+  an MoE block runs all its experts at once (what its shards sum to).
+  Over a ``launch.mesh.DistMesh`` (one rank a process) every entry point is
+  the JAX package's ``shard_map`` body on this rank: it takes this rank's
+  rows of the batch (the caller picks them, and sharding the batch over
+  the data axes is the caller's choice) and this rank's block of the params
+  (``launch.shardings.shard_tree``) and of the cache, and returns this
+  rank's rows. The cache's K/V hold Smax / n_model rows a rank where the
+  decode runs sequence-sharded (``attention.seq_sharded``); an MoE block
+  holds E / n_model experts a rank, or every expert's d_ff / n_model
+  (``moe.moe_forward``). After their collectives the model axis's ranks
+  hold the same logits. The JAX package's ``_act_constraint`` (an FSDP
+  layout hint) has no twin: under a mesh it changes no number.
 * entry points default to ``device="cuda"``; nothing moves to the CPU
   unless the caller asks for it.
 """
@@ -48,6 +60,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import mesh_axes, mesh_counts, on_ranks
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -59,25 +72,29 @@ _IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
 
 class MeshContext(NamedTuple):
     """The JAX package's ``MeshContext`` (``moe.MoEMeshInfo``)."""
-    mesh: object                 # launch.mesh.LocalMesh
+    mesh: object                 # launch.mesh.LocalMesh or launch.mesh.DistMesh
     batch_axes: tuple            # e.g. ('data',)
     model_axis: str              # 'model'
     n_model: int
     n_batch: int
 
 
+def mesh_context(mesh) -> MeshContext:
+    """The MeshContext of a LocalMesh or a DistMesh."""
+    n_batch, n_model = mesh_counts(mesh)
+    return MeshContext(mesh, *mesh_axes(mesh), n_model, n_batch)
+
+
 _F32_PARAMS = ssm_mod.F32_PARAMS + moe_mod.F32_PARAMS
 
 
-def _check_family(cfg: ModelConfig, mesh_info: Optional["MeshContext"] = None) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
         # the JAX package's hybrid cache holds K/V in cfg.dtype while its
         # prefill returns int8 (values, scales) pairs: no engine can hold both
         raise NotImplementedError("an int8 KV cache is not ported for the hybrid family")
-    if cfg.family == "moe" and mesh_info is not None:
-        raise NotImplementedError("the expert-parallel MoE path over a mesh is not ported")
 
 
 def hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -205,12 +222,12 @@ def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # Full-sequence forward
 # ======================================================================
 
-def _ffn(blk, h: torch.Tensor, cfg: ModelConfig):
+def _ffn(blk, h: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[MeshContext]):
     """The block's MLP or MoE on the normed residual: (out, load-balance
     loss or None)."""
     x = rms_norm(h, blk["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = moe_mod.moe_forward(blk["moe"], x, cfg)
+        y, aux = moe_mod.moe_forward(blk["moe"], x, cfg, mesh_info)
         return y, aux["lb_loss"]
     return mlp_mod.mlp_forward(blk["mlp"], x), None
 
@@ -224,13 +241,14 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
+            mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss
     scalar: the mean load-balance loss over the layers for MoE, else 0).
     Under ``cfg.remat`` each block (each Mamba2 layer of a hybrid, whose
     shared attention is not) is recomputed in the backward pass, as the JAX
-    package checkpoints the body of its layer scan."""
+    package checkpoints the body of its layer scan. Only the MoE blocks read
+    ``mesh_info``."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
@@ -251,7 +269,7 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]
     def attn_block(blk, h):
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
                                       cfg, impl=impl)
-        y, lb_i = _ffn(blk, h, cfg)
+        y, lb_i = _ffn(blk, h, cfg, mesh_info)
         return h + y, lb_i
 
     lb = torch.zeros((), device=h.device)
@@ -272,7 +290,21 @@ def _kv_smax(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dict[str, Any]:
+def _seq_rows(cfg: ModelConfig, mesh_info: Optional[MeshContext], smax: int) -> slice:
+    """The rows of a K/V cache of ``smax`` rows that this rank holds: its
+    slice of Smax / n_model under a DistMesh whose decode runs
+    sequence-sharded, else all."""
+    if not (on_ranks(mesh_info) and attn_mod.seq_sharded(cfg, mesh_info, smax)):
+        return slice(None)
+    chunk = smax // mesh_info.n_model
+    off = mesh_info.mesh.axis_index(mesh_info.model_axis) * chunk
+    return slice(off, off + chunk)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               mesh_info: Optional[MeshContext] = None) -> Dict[str, Any]:
+    """An empty cache of ``batch`` rows; under a DistMesh this rank's
+    block (:func:`_seq_rows`)."""
     _check_family(cfg)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     KV, hd = cfg.eff_n_kv_heads, cfg.resolved_head_dim
@@ -282,10 +314,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Dic
                  "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
         if cfg.family == "hybrid":   # max_len rows, as in the JAX package, window or not
             g = hybrid_split(cfg)[0]
-            cache["k"], cache["v"] = (torch.zeros((g, batch, max_len, KV, hd), dtype=_dtype(cfg),
+            rows = len(range(max_len)[_seq_rows(cfg, mesh_info, max_len)])
+            cache["k"], cache["v"] = (torch.zeros((g, batch, rows, KV, hd), dtype=_dtype(cfg),
                                                   device=device) for _ in range(2))
         return cache
-    shape = (cfg.n_layers, batch, _kv_smax(cfg, max_len), KV, hd)
+    smax = _kv_smax(cfg, max_len)
+    shape = (cfg.n_layers, batch, len(range(smax)[_seq_rows(cfg, mesh_info, smax)]), KV, hd)
 
     def leaf():
         if cfg.kv_cache_dtype == "int8":
@@ -304,9 +338,10 @@ def _layer(leaf, i: int):
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int,
             mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt (``batch`` as :func:`embed_inputs` takes it); returns
-    (last-position logits (B,Vp), filled cache). ``mesh_info`` is taken for
-    the JAX signature; only the MoE family reads it in a prefill, and raises."""
-    _check_family(cfg, mesh_info)
+    (last-position logits (B,Vp), filled cache). Under a DistMesh the cache
+    is this rank's block (:func:`_seq_rows`); the MoE blocks read
+    ``mesh_info`` too."""
+    _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
@@ -323,26 +358,28 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
                 # a cache of max_len rows, as the JAX package's hybrid prefill has
                 o, kc, vc = attn_mod.attn_prefill(shared["attn"], x, cfg, max_len, impl=impl)
                 h = h + o
-                kv.append((kc, vc))
+                rows = _seq_rows(cfg, mesh_info, max_len)
+                kv.append((kc[:, rows], vc[:, rows]))
         cache = {"lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
                  "ssm_state": tuple(torch.stack(leaf) for leaf in zip(*states))}
         if cfg.family == "hybrid":
             cache["k"], cache["v"] = (torch.stack(t) for t in zip(*kv, strict=True))
         return lm_logits(params, cfg, h[:, -1]), cache
-    cache = init_cache(cfg, b, max_len, device=h.device)
+    cache = init_cache(cfg, b, max_len, device=h.device, mesh_info=mesh_info)
     cache["lengths"].fill_(s)
     smax = _kv_smax(cfg, max_len)
+    rows = _seq_rows(cfg, mesh_info, smax)
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
         o, kc, vc = attn_mod.attn_prefill(blk["attn"], x, cfg, smax, impl=impl)
         for big, small in ((cache["k"], kc), (cache["v"], vc)):
             if isinstance(big, tuple):      # int8 values and scales
                 for dst, src in zip(big, small, strict=True):
-                    dst[i] = src
+                    dst[i] = src[:, rows]
             else:
-                big[i] = small
+                big[i] = small[:, rows]
         h = h + o
-        h = h + _ffn(blk, h, cfg)[0]
+        h = h + _ffn(blk, h, cfg, mesh_info)[0]
     return lm_logits(params, cfg, h[:, -1]), cache
 
 
@@ -358,7 +395,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
     ``cfg.sharded_decode_attn``, attention (a hybrid's shared block too)
     runs sequence-sharded. An MoE block routes all B rows, active or not,
     as the JAX package does."""
-    _check_family(cfg, mesh_info)
+    _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
     step = 1 if active is None else active.to(torch.int32)
@@ -386,6 +423,6 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
         h = h + attn_mod.attn_decode_dispatch(
             blk["attn"], x, _layer(cache["k"], i), _layer(cache["v"], i), lengths, cfg,
             mesh_info, impl=impl, active=active)
-        h = h + _ffn(blk, h, cfg)[0]
+        h = h + _ffn(blk, h, cfg, mesh_info)[0]
     new_cache = {"lengths": lengths + step, "k": cache["k"], "v": cache["v"]}
     return lm_logits(params, cfg, h[:, 0]), new_cache

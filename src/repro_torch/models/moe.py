@@ -18,8 +18,23 @@ A decode step routes all B rows of the batch, inactive ones too, as the
 JAX engine does (it masks the cache after the step): an inactive row can
 take capacity from an active one.
 
-The expert-parallel path over a mesh (``shard_map`` in the JAX package) is
-not ported: ``moe_forward`` with ``mesh_info`` raises NotImplementedError.
+Over a mesh of processes (``launch.mesh.DistMesh``) the block is the JAX
+package's ``shard_map`` body on this rank: with ``E % n_model == 0``
+(expert parallel) the rank holds experts ``[r E / n_model, (r + 1) E /
+n_model)`` and routes every token over all E, keeping the slots of its
+own experts; otherwise (expert tensor parallel) it holds every expert with
+its d_ff sliced over the model axis. Either way its partial output is
+summed over the model axis (in ``x``'s dtype, bf16 on the card, as the
+JAX package's psum), the load-balance loss averaged and the kept slots
+summed (averaged under expert TP, where every rank keeps the same). The
+capacity and the load-balance loss are those of this rank's rows, as the
+JAX package computes them per batch shard. Under autograd the token rows
+that enter the local experts and the gates carry gradients that are
+partial on each rank: they are summed over the model axis in the backward
+pass (``launch.mesh.sum_grads_over``), so the router's, the input's and
+every replicated parameter's gradient is whole and the same on every rank
+of the axis. Over a ``LocalMesh`` (one process holds every shard) the
+block runs all experts at once, which is what the shards' sum computes.
 """
 from __future__ import annotations
 
@@ -30,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import on_ranks, reduced_over, sum_grads_over
 from repro_torch.models.common import dense_init
 
 F32_PARAMS = ("router",)  # float32 in every config, as in the JAX package
@@ -83,27 +99,42 @@ def _expert_ffn(xd: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.bmm(F.silu(torch.bmm(xd, w_gate)) * torch.bmm(xd, w_up), w_down)
 
 
-def _dispatch(experts: torch.Tensor, cap: int, n_experts: int):
-    """(keep (M,) bool, dest (M,) row of each slot in the (E cap + 1)-row
-    dispatch buffer, the last row the dump) for the flattened top-k experts."""
+def _dispatch(experts: torch.Tensor, cap: int, n_local: int, offset: int = 0):
+    """(keep (M,) bool, dest (M,) row of each slot in the (n_local cap +
+    1)-row dispatch buffer, the last row the dump) for the flattened top-k
+    experts, of which experts [offset, offset + n_local) are held here. A
+    slot routed elsewhere goes to an overflow bin (expert n_local), which
+    takes no capacity from the local experts, and is not kept."""
     e_flat = experts.reshape(-1)
-    pos = _positions_in_expert(e_flat)
-    keep = pos < cap
-    return keep, torch.where(keep, e_flat * cap + pos, n_experts * cap)
+    local = (e_flat >= offset) & (e_flat < offset + n_local)
+    e_local = torch.where(local, e_flat - offset, n_local)
+    pos = _positions_in_expert(e_local)
+    keep = local & (pos < cap)
+    return keep, torch.where(keep, e_local * cap + pos, n_local * cap)
 
 
-def _moe_local(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x (B, S, D) -> (y (B, S, D), aux: lb_loss, kept, slots)."""
+def _moe_local(p: dict, x: torch.Tensor, cfg: ModelConfig, n_local_experts: int,
+               expert_offset: int = 0, *, partial_grad=None):
+    """The block over local experts [offset, offset + n_local) (their
+    weights in ``p``), the reference's signature: x (B, S, D) -> (partial y
+    (B, S, D), aux: lb_loss, kept, slots). Tokens routed to other experts
+    contribute zero. ``partial_grad``, where given, is applied to the token
+    rows that enter the experts and to the gates, whose gradients are this
+    block's part of the whole (see the module's docstring)."""
     b, s, d = x.shape
     k, E = cfg.moe.top_k, cfg.moe.n_experts
     t = b * s
     x2d = x.reshape(t, d)
     gates, experts, probs = _route(x2d, p["router"], cfg)
+    x_in = x2d
+    if partial_grad is not None:
+        x_in, gates = partial_grad(x2d), partial_grad(gates)
     cap = capacity(t, cfg)
-    keep, dest = _dispatch(experts, cap, E)
-    dump = E * cap
-    disp = x.new_zeros((dump + 1, d)).index_copy_(0, dest, x2d.repeat_interleave(k, dim=0))
-    yd = _expert_ffn(disp[:dump].view(E, cap, d), p["w_gate"], p["w_up"], p["w_down"])
+    keep, dest = _dispatch(experts, cap, n_local_experts, expert_offset)
+    dump = n_local_experts * cap
+    disp = x.new_zeros((dump + 1, d)).index_copy_(0, dest, x_in.repeat_interleave(k, dim=0))
+    yd = _expert_ffn(disp[:dump].view(n_local_experts, cap, d), p["w_gate"], p["w_up"],
+                     p["w_down"])
     y_rep = yd.reshape(dump, d)[torch.clamp(dest, max=dump - 1)]
     y_rep = torch.where(keep[:, None], y_rep, 0.0)
     w = gates.reshape(t * k) * keep
@@ -117,8 +148,21 @@ def _moe_local(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[object] = None):
-    """MoE block.  x (B,S,D) -> (y (B,S,D), {"lb_loss", "drop_frac"})."""
-    if mesh_info is not None:
-        raise NotImplementedError("the expert-parallel MoE path over a mesh is not ported")
-    y, aux = _moe_local(p, x, cfg)
-    return y, {"lb_loss": aux["lb_loss"], "drop_frac": 1.0 - aux["kept"] / aux["slots"]}
+    """MoE block.  x (B,S,D) -> (y (B,S,D), {"lb_loss", "drop_frac"}).
+    Under a DistMesh, ``p`` is this rank's block and ``x`` its rows."""
+    E = cfg.moe.n_experts
+    if not on_ranks(mesh_info):
+        y, aux = _moe_local(p, x, cfg, E)
+        return y, {"lb_loss": aux["lb_loss"], "drop_frac": 1.0 - aux["kept"] / aux["slots"]}
+    mesh, ma, nm = mesh_info.mesh, mesh_info.model_axis, mesh_info.n_model
+    ep = E % nm == 0              # expert parallel; else expert TP (d_ff sliced)
+    if not ep and cfg.moe.d_ff_expert % nm:
+        raise ValueError(f"{E} experts and d_ff_expert {cfg.moe.d_ff_expert} do not split "
+                         f"over {nm} ranks")
+    n_local = E // nm if ep else E
+    y, aux = _moe_local(p, x, cfg, n_local, mesh.axis_index(ma) * n_local if ep else 0,
+                        partial_grad=lambda t: sum_grads_over(t, mesh, ma))
+    y = reduced_over(y, mesh, ma)
+    lb = reduced_over(aux["lb_loss"], mesh, ma, mean=True)
+    kept = mesh.psum(aux["kept"], ma) if ep else mesh.pmean(aux["kept"], ma)
+    return y, {"lb_loss": lb, "drop_frac": 1.0 - kept / aux["slots"]}

@@ -19,6 +19,16 @@ With ``mesh_info`` (``models.model.MeshContext`` over
 ``launch.mesh.make_local_mesh(n)``) and a config with
 ``sharded_decode_attn``, every decode step runs the sequence-sharded
 split-KV attention over n shards of the cache.
+
+Over a mesh of processes (``mesh_info`` over a ``launch.mesh.DistMesh``)
+every rank runs its own engine, with the same calls in the same order
+(lockstep), and holds its block of the cache: its slice of the sequence
+where the decode runs sequence-sharded, and its rows of the batch where
+``max_batch`` divides over the batch axes. A prefill of one prompt runs on
+every rank (batch 1 is not sharded) and lands in the slot's rows only on
+the ranks that hold them; a step decodes this rank's rows and gathers the
+logits of all rows over the batch axes, so every rank samples the same
+tokens and keeps the same slots.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import on_ranks
 from repro_torch.models import model as model_mod
 
 
@@ -64,7 +75,13 @@ class ServingEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.mesh_info = mesh_info
-        self.cache = model_mod.init_cache(cfg, max_batch, max_len, device=self.device)
+        # the rows of the batch this rank holds: [row0, row0 + rows)
+        self.row0, self.rows = 0, max_batch
+        if on_ranks(mesh_info) and max_batch % mesh_info.n_batch == 0:
+            self.rows = max_batch // mesh_info.n_batch
+            self.row0 = mesh_info.mesh.axis_index(mesh_info.batch_axes) * self.rows
+        self.cache = model_mod.init_cache(cfg, self.rows, max_len, device=self.device,
+                                          mesh_info=mesh_info)
         self.slots = [Slot(i) for i in range(max_batch)]
         self.pending_tokens = np.zeros((max_batch,), np.int32)
         self.steps_executed = 0
@@ -97,16 +114,18 @@ class ServingEngine:
         toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
                                            self.max_len, mesh_info=self.mesh_info)
-        for name, leaf in cache1.items():
-            if name == "lengths":
-                continue
-            # every other leaf is (L, batch, ...): k/v, an int8 (values, scales)
-            # pair, or the ssm state tuple
-            pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
-                else ((self.cache[name], leaf),)
-            for big, small in pairs:
-                big[:, slot].copy_(small[:, 0])
-        self.cache["lengths"][slot] = len(prompt)
+        row = slot - self.row0
+        if 0 <= row < self.rows:
+            for name, leaf in cache1.items():
+                if name == "lengths":
+                    continue
+                # every other leaf is (L, batch, ...): k/v, an int8 (values,
+                # scales) pair, or the ssm state tuple
+                pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
+                    else ((self.cache[name], leaf),)
+                for big, small in pairs:
+                    big[:, row].copy_(small[:, 0])
+            self.cache["lengths"][row] = len(prompt)
         self.pending_tokens[slot] = int(torch.argmax(logits[0]))
         return slot
 
@@ -130,10 +149,14 @@ class ServingEngine:
         active = np.array([s.active and not s.done for s in self.slots])
         if not active.any():
             return {}
-        tokens = torch.as_tensor(self.pending_tokens, dtype=torch.int64).to(self.device)
-        active_t = torch.as_tensor(active).to(self.device)
+        mine = slice(self.row0, self.row0 + self.rows)
+        tokens = torch.as_tensor(self.pending_tokens[mine], dtype=torch.int64).to(self.device)
+        active_t = torch.as_tensor(active[mine]).to(self.device)
         logits, self.cache = model_mod.decode_step(self.params, self.cfg, self.cache, tokens,
                                                    active=active_t, mesh_info=self.mesh_info)
+        if self.rows < self.max_batch:      # every row's logits, on every rank
+            logits = self.mesh_info.mesh.all_gather(logits, self.mesh_info.batch_axes)
+            logits = logits.reshape(self.max_batch, -1)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         out: Dict[int, int] = {}
         self.steps_executed += 1

@@ -58,12 +58,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt_state, c: AdamWConfig):
+def apply_updates(params, grads, opt_state, c: AdamWConfig, *, gnorm=None):
     """One AdamW step, in place. Returns (params, opt_state, metrics) with
     the same ``params``, ``m`` and ``v`` tensors, updated, and a new
-    ``step``."""
+    ``step``. ``gnorm`` is the gradient's global norm where the caller
+    computes it (over a mesh, where this rank holds part of the gradient);
+    ``global_norm(grads)`` if None."""
     step = opt_state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = lr_at(step, c)
     stepf = step.float() + 1

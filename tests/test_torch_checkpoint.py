@@ -3,8 +3,8 @@ checkpoint tests, the on-disk format shared with the JAX package (a tree
 saved by either restores in the other, bit for bit, bf16 included), and a
 resumed training run equal to an uninterrupted one.
 
-The twin of test_elastic_restore_across_meshes waits for the multi-device
-port (ROADMAP Queue 1 item 8); ``restore`` onto a mesh raises until then.
+The twin of test_elastic_restore_across_meshes (a restore onto a mesh of
+another size) is in tests/test_torch_dist_training.py, on gloo ranks.
 """
 import os
 import shutil
@@ -111,12 +111,6 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     manifests = [json.loads((d / "step_6" / "manifest.json").read_text())
                  for d in (tmp_path, tmp_path / "jax")]
     assert manifests[0] == manifests[1]
-
-
-def test_restore_onto_a_mesh_raises_until_the_multi_device_port(tmp_path):
-    ck.save({"x": torch.zeros(2)}, str(tmp_path), 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ck.restore(str(tmp_path), 1, {"x": torch.zeros(2)}, mesh=object(), spec_tree={})
 
 
 def test_resumed_training_matches_an_uninterrupted_run(tmp_path):

@@ -50,7 +50,13 @@ waves); the forward writing its chunk states leaves y and the final
 state unchanged bit for bit; no instantiation spills, and the bf16 ones
 hold more HMMA than the simple kernel's; ops.ssd_scan under autograd on the card runs SsdScanFn, whose
 gradients are the plain backward's; and the decode entries raise under
-autograd on the card.
+autograd on the card. Ranks that share the card over gloo
+(``launch.dist.spawn``): the sequence-sharded decode (reduced qwen2-7b, f32
+and int8 caches, the partials kernel once a layer a step on each rank) and
+the expert-parallel MoE block with its gradients, each against the same 2
+ranks on the CPU at 1e-4; and each collective op the mesh does not stage
+through the host (``launch.mesh.HOST_STAGED``) taking CUDA tensors of
+every dtype the port reduces.
 """
 import numpy as np
 import pytest
@@ -902,3 +908,86 @@ def test_decode_under_grad_raises_on_the_card(cuda_device):
             assert torch.isfinite(dq).all() and dq.abs().sum() > 0
         with torch.no_grad():
             fn(q, kc, vc, lens, impl="kernel")
+
+
+# ---- ranks sharing the card (launch.dist over gloo) -------------------------
+
+def _dist_inputs():
+    import torch_dist_bodies as bodies
+    rng = np.random.default_rng(45)
+    cfg = bodies.config("qwen2-7b")
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 11)).astype(np.int64)
+    feed = rng.integers(0, cfg.vocab_size, size=(3, 2)).astype(np.int64)
+    return bodies.numpy_params("qwen2-7b", seed=3), prompt, feed
+
+
+@pytest.mark.parametrize("kv", [{}, {"kv_cache_dtype": "int8"}])
+def test_dist_decode_on_the_card_matches_the_cpu(cuda_device, kv):
+    """Reduced qwen2-7b (f32), sequence-sharded over 2 gloo ranks that share
+    the card: each rank launches the partials kernel once a layer a step
+    (4 layers, 3 steps), and its logits equal 2 ranks' on the CPU (the
+    plain partials) at 1e-4; with the int8 cache on log-softmax at 2e-2
+    (tests/test_perf_features.py's bound: the card's and the CPU's f32
+    products round K and V differently, which can move a value across an
+    int8 step)."""
+    import torch_dist_bodies as bodies
+    from repro_torch.launch.dist import spawn
+    np_params, prompt, feed = _dist_inputs()
+    args = (np_params, kv, prompt, feed, 32)
+    card = spawn(bodies.decode, 2, device="cuda:0", model_parallel=2, args=args)
+    cpu = spawn(bodies.decode, 2, device="cpu", model_parallel=2, args=args)
+    for got, want in zip(card, cpu, strict=True):
+        assert got["partials_launches"] == 4 * 3 and want["partials_launches"] == 0
+        if kv:
+            lsm = [torch.log_softmax(torch.from_numpy(r["logits"]), -1).numpy()
+                   for r in (got, want)]
+            np.testing.assert_allclose(*lsm, atol=2e-2, rtol=0)
+        else:
+            np.testing.assert_allclose(got["logits"], want["logits"], atol=1e-4, rtol=1e-4)
+        assert got["counts"] == want["counts"] == {"collectives": 3 * 4 * 3, "staged_copies": 0}
+
+
+def test_dist_moe_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced mixtral-8x7b's MoE block (f32, E = 4, capacity 1: slots
+    drop) expert-parallel over 2 gloo ranks sharing the card, with the
+    gradients of sum(y * r): equal to 2 ranks' on the CPU at 1e-4."""
+    import torch_dist_bodies as bodies
+    from repro_torch.launch.dist import spawn
+    rng = np.random.default_rng(46)
+    e, d, f = 4, 128, 64
+    blk = {"router": 0.3 * rng.normal(size=(d, e)).astype(np.float32),
+           "w_gate": 0.1 * rng.normal(size=(e, d, f)).astype(np.float32),
+           "w_up": 0.1 * rng.normal(size=(e, d, f)).astype(np.float32),
+           "w_down": 0.1 * rng.normal(size=(e, f, d)).astype(np.float32)}
+    x = rng.normal(size=(2, 7, d)).astype(np.float32)
+    args = (blk, x, {"moe": {"capacity_factor": 1.0}}, 5)
+    card = spawn(bodies.moe, 2, device="cuda:0", model_parallel=2, args=args)
+    cpu = spawn(bodies.moe, 2, device="cpu", model_parallel=2, args=args)
+    for got, want in zip(card, cpu, strict=True):
+        assert got["drop_frac"] == pytest.approx(want["drop_frac"], rel=1e-6)
+        assert want["drop_frac"] > 0
+        assert got["lb_loss"] == pytest.approx(want["lb_loss"], rel=1e-5)
+        for key in ("y", "dx"):
+            np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=1e-4)
+        for key in want["dp"]:
+            np.testing.assert_allclose(got["dp"][key], want["dp"][key], atol=1e-4, rtol=1e-4)
+
+
+def test_gloo_takes_cuda_tensors_where_the_mesh_does_not_stage(cuda_device):
+    """launch.mesh.HOST_STAGED lists the (backend, op) pairs whose CUDA
+    tensors the mesh copies through the host itself; every op the port runs
+    and the list leaves out must take CUDA tensors of each dtype the port
+    reduces on gloo, give the right values and leave them on the card."""
+    import torch_dist_bodies as bodies
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.mesh import HOST_STAGED
+    for res in spawn(bodies.staging, 2, device="cuda:0", model_parallel=2):
+        assert res["backend"] == "gloo"
+        for dtype, checks in ((k, v) for k, v in res.items() if k.startswith("torch.")):
+            for op in ("psum", "pmax", "all_gather"):
+                assert checks[op], (dtype, op)
+            assert checks["devices"] == ["cuda:0"], dtype
+        # per dtype: psum and pmax (all_reduce), all_gather; two copies a staged one
+        staged = (2 * (("gloo", "all_reduce") in HOST_STAGED)
+                  + (("gloo", "all_gather") in HOST_STAGED))
+        assert res["counts"] == {"collectives": 3 * 4, "staged_copies": 2 * 4 * staged}

@@ -148,23 +148,8 @@ def test_init_params_shapes_and_vocab_mask():
 
 @pytest.mark.parametrize("arch,kw,entry", [
     ("zamba2-1.2b", {"kv_cache_dtype": "int8"}, "init"),  # hybrid family with an int8 KV cache
-    ("mixtral-8x7b", {}, "prefill"),            # MoE family under a mesh (expert parallelism)
-    ("qwen3-moe-30b-a3b", {}, "decode"),
 ])
 def test_unported_variants_raise(arch, kw, entry):
-    from repro_torch.launch.mesh import make_local_mesh
-
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
-    if entry == "init":
-        with pytest.raises(NotImplementedError):
-            M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-        return
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    mi = M.MeshContext(make_local_mesh(2, device="cpu"), ("data",), "model", 2, 1)
-    toks = torch.from_numpy(_tokens(cfg, (1, 4), seed=9)).long()
     with pytest.raises(NotImplementedError):
-        if entry == "prefill":
-            M.prefill(params, cfg, {"tokens": toks}, max_len=8, mesh_info=mi)
-        else:
-            M.decode_step(params, cfg, M.init_cache(cfg, 1, 8, device="cpu"), toks[:, 0],
-                          mesh_info=mi)
+        M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

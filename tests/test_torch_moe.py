@@ -141,9 +141,39 @@ def test_moe_local_with_fed_expert_ids_matches_jax(monkeypatch, t, cf, draw):
                                                    torch.from_numpy(probs)))
     want_y, want_aux = jmoe._moe_local(jax.tree.map(jnp.asarray, params), jnp.asarray(x), jcfg,
                                        E, 0)
-    got_y, got_aux = moe._moe_local(_to_torch(params), torch.from_numpy(x), cfg)
+    got_y, got_aux = moe._moe_local(_to_torch(params), torch.from_numpy(x), cfg, E, 0)
     assert float(got_aux["kept"]) == float(want_aux["kept"])
     assert got_aux["slots"] == float(want_aux["slots"]) == t * k
+    _close(got_y, want_y, BLOCK_TOL)
+    _close(got_aux["lb_loss"], want_aux["lb_loss"], BLOCK_TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("t,cf,draw", DISPATCH_CASES)
+def test_moe_local_shard_with_fed_expert_ids_matches_jax(monkeypatch, t, cf, draw, offset):
+    """One expert-parallel shard: 2 of the 4 experts from ``offset``, their
+    weights alone, the slots routed elsewhere in the overflow bin; the same
+    expert ids and gates fed to both packages' ``_moe_local``: the same
+    slots kept and the partial y within f32 1e-5."""
+    jcfg, cfg = _cfgs(capacity_factor=cf)
+    E, k, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    rng = np.random.default_rng(300 + t)
+    p = None if draw == "uniform" else [0.55, 0.25, 0.15, 0.05]
+    experts = np.stack([rng.choice(E, size=k, replace=False, p=p) for _ in range(t)])
+    gates = rng.uniform(0.1, 1.0, size=(t, k)).astype(np.float32)
+    probs = rng.dirichlet(np.ones(E), size=t).astype(np.float32)
+    x = _normal(rng, (1, t, D))
+    params = _block_params(cfg, seed=t)
+    shard = {name: (a if name == "router" else a[offset:offset + 2]) for name, a in params.items()}
+    monkeypatch.setattr(jmoe, "_route", lambda *_: (jnp.asarray(gates), jnp.asarray(experts),
+                                                    jnp.asarray(probs)))
+    monkeypatch.setattr(moe, "_route", lambda *_: (torch.from_numpy(gates),
+                                                   torch.from_numpy(experts).long(),
+                                                   torch.from_numpy(probs)))
+    want_y, want_aux = jmoe._moe_local(jax.tree.map(jnp.asarray, shard), jnp.asarray(x), jcfg,
+                                       2, offset)
+    got_y, got_aux = moe._moe_local(_to_torch(shard), torch.from_numpy(x), cfg, 2, offset)
+    assert float(got_aux["kept"]) == float(want_aux["kept"])
     _close(got_y, want_y, BLOCK_TOL)
     _close(got_aux["lb_loss"], want_aux["lb_loss"], BLOCK_TOL)
 
@@ -261,14 +291,19 @@ def test_moe_load_balance_aux():
     assert 0.0 < float(aux) < 10.0
 
 
-def test_moe_under_a_mesh_raises():
-    """The expert-parallel path over a mesh is not ported."""
-    _, cfg = _cfgs()
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_under_a_local_mesh_runs_every_expert(arch):
+    """Over a LocalMesh one process holds every shard, so an MoE block runs
+    all its experts at once, what the shards' psum adds up to: prefill and
+    decode equal those without a mesh. The mesh of processes is held
+    against JAX's shard_map in tests/test_torch_dist_moe.py."""
+    _, cfg = _cfgs(arch)
     params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    mi = M.MeshContext(make_local_mesh(2, device="cpu"), ("data",), "model", 2, 1)
+    mi = M.mesh_context(make_local_mesh(2, device="cpu"))
     toks = torch.from_numpy(_tokens(cfg, (1, 5), seed=11)).long()
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        M.prefill(params, cfg, {"tokens": toks}, max_len=16, mesh_info=mi)
-    _, cache = M.prefill(params, cfg, {"tokens": toks}, max_len=16)
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        M.decode_step(params, cfg, cache, toks[:, -1], mesh_info=mi)
+    lg_mesh, cache_mesh = M.prefill(params, cfg, {"tokens": toks}, max_len=16, mesh_info=mi)
+    lg, cache = M.prefill(params, cfg, {"tokens": toks}, max_len=16)
+    assert torch.equal(lg_mesh, lg)
+    lg_mesh, _ = M.decode_step(params, cfg, cache_mesh, toks[:, -1], mesh_info=mi)
+    lg, _ = M.decode_step(params, cfg, cache, toks[:, -1])
+    assert torch.equal(lg_mesh, lg)

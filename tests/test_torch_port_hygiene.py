@@ -125,3 +125,15 @@ def test_port_uses_no_library_attention_or_jax(banned):
     hits = [str(p.relative_to(SRC)) for p in PORT.rglob("*")
             if p.suffix in (".py", ".cu", ".cuh") and banned in p.read_text()]
     assert hits == [], f"{banned!r} found in {hits}"
+
+
+@pytest.mark.parametrize("rel", ["launch/dist.py", "launch/shardings.py",
+                                 "training/compression.py"])
+def test_multi_device_modules_are_the_ports_own(rel):
+    """The multi-device modules are the port's own code, not copies: they
+    are among the modules imported without JAX above, import no jax and no
+    repro, and are not in COPIED (the drift guard)."""
+    module = "repro_torch." + rel.removesuffix(".py").replace("/", ".")
+    assert module in _port_modules() and rel not in COPIED
+    text = (PORT / rel).read_text()
+    assert not re.search(r"^\s*(import jax|from jax|import repro\.|from repro\.)", text, re.M)

@@ -338,17 +338,6 @@ def test_prefill_and_serve_step_match_jax(arch):
         np.testing.assert_array_equal(cache["lengths"].numpy(), np.asarray(jcache["lengths"]))
 
 
-def test_mesh_raises_until_the_multi_device_port():
-    from repro_torch.launch.train import train
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train("qwen2-7b", steps=1, use_mesh=True, device="cpu")
-    jcfg, cfg = _cfgs("qwen2-7b")
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tsteps.train_step(params, topt.init_opt_state(params), {}, cfg=cfg,
-                          opt_cfg=topt.AdamWConfig(), mesh_info=object())
-
-
 def test_training_reduces_loss():
     """100 steps on the bigram stream must actually learn: the twin of
     tests/test_models.py::test_training_reduces_loss, through the port's
