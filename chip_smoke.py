@@ -110,6 +110,17 @@ Phases, one line of output each (or more):
      SSM checkpoint is written;
      then reduced mamba2-2.7b and reduced granite-8b trained 100 steps each
      on the card, whose losses must drop by more than 0.5;
+  X. the dry-run tooling (src/repro_torch/launch/dryrun.py), which needs
+     no card and launches none of the kernels (their counts must stay 0):
+     (a) its CLI on qwen2-7b decode_32k on the 256-rank mesh and
+     qwen3-moe-30b-a3b decode_32k on the 512-rank one, each in a process of
+     its own (a fake process group, meta DTensors): each must give status
+     ok, and its roofline terms and per-device bytes are printed; (b)
+     meanwhile phase T's musicgen-medium step (4 x 128) counted on meta
+     tensors on one device: its FLOPs and compute and memory terms beside
+     phase T's device ms, which must be at least the larger term (a
+     roofline is a lower bound), and phase T's peak memory, which must be
+     at least the dry-run's state bytes; both ratios printed;
   R. the B-PASTE runtime (src/repro_torch/core/runtime.py), which runs
      none of the kernels (their counts must stay 0): (a) the speculative-
      serving demos of launch/speculative_serving.py with their asserts;
@@ -1101,16 +1112,20 @@ def kernel_counters():
             "ssd_scan_bwd": (ssd, "bwd_launches")}
 
 
-def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, restart_at=2):
+def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, restart_at=2,
+                   readings=None):
     """Phase T: full-width musicgen-medium trained on the card through the
     port's training driver (flash forward and backward kernels on the
     path), stopped and resumed from a checkpoint, profiled over one step and
     held against the oracle attention path; then full-width mamba2-2.7b and
     zamba2-1.2b (``ssm_training``); then reduced mamba2-2.7b and granite-8b
     trained 100 steps each, which must learn. Records the training paths'
-    launch counts in ``launches``."""
+    launch counts in ``launches``, and in ``readings`` musicgen-medium's
+    step: its shape, its device ms from the profiler and the peak device
+    memory of its 5-step run (phase X holds the dry-run's terms to them)."""
     counters = kernel_counters() if counters is None else counters
     launches = {} if launches is None else launches
+    readings = {} if readings is None else readings
     import tempfile
 
     from torch.autograd import DeviceType
@@ -1147,6 +1162,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
             wall = time.time() - t0
             counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 1e9
+            readings[arch] = {"seq_len": seq_len, "batch": batch, "peak_bytes": peak * 1e9}
             for i, r in enumerate(record):
                 print(f"phase T {arch} step {i}: {json.dumps(r)}", flush=True)
             print(f"phase T {arch} {steps} steps of {batch} x {seq_len} tokens: "
@@ -1229,6 +1245,7 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
     _, fb_kernels = traced(lambda: steps_mod.loss_and_grads(params, cfg, tbatch[1]))
     row["forward_backward_device_ms"] = sum(e.self_device_time_total for e in fb_kernels) / 1e3
     row["forward_backward_kernels"] = sum(e.count for e in fb_kernels)
+    readings[arch]["device_ms"] = device_ms
     print(f"phase T {arch} one step (wall from the step before, device from torch.profiler): "
           f"{json.dumps(row)}", flush=True)
 
@@ -1541,6 +1558,72 @@ def ssm_training(arch, counters, launches, steps=3, seq_len=512, batch=4):
         f"the backward without the decays' cotangent passed TRAIN_BOUND on A_log or w_dt: {misses}"
     del params, lv_k, lv_r, lv_c
     torch.cuda.empty_cache()
+
+
+# phase X: the dry-run's CLI cells (decode: one token a step, so that each
+# traces in seconds), each in a process of its own, since the fake default
+# process group is a one-way step for its process
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k", "single"), ("qwen3-moe-30b-a3b", "decode_32k", "multi"))
+
+
+def dryrun_phase(readings, timeout=80):
+    """Phase X: the dry-run tooling (``launch/dryrun.py``), which needs no
+    card and launches no kernel. (a) The CLI on ``DRYRUN_CELLS``, each laid
+    out on its production mesh of 256 or 512 ranks over a fake process
+    group in a subprocess of its own: each must give status ok; its terms
+    and per-device bytes are printed. (b) Meanwhile, in this process, phase
+    T's musicgen-medium step (``readings``) counted on meta tensors on one
+    device (``dryrun.count_unsharded``): its FLOPs, compute and memory terms
+    beside phase T's device ms, which must be at least the larger term (a
+    roofline is a lower bound), and phase T's peak memory, which must be at
+    least the dry-run's state bytes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), OMP_NUM_THREADS="1")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--mesh", mesh, "--out-dir", out_dir],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for arch, shape, mesh in DRYRUN_CELLS]
+    try:
+        arch = "musicgen-medium"
+        seen = readings[arch]
+        shape = ShapeConfig("train_4x128", "train", seen["seq_len"], seen["batch"])
+        res = dryrun.count_unsharded(arch, shape)
+        terms_ms = {k: v * 1e3 for k, v in res["terms"].items()}
+        largest = max(terms_ms.values())
+        row = {"flops": res["counter"].flops, "model_flops": dryrun.model_flops(res["cfg"], shape),
+               "compute_ms": terms_ms["compute"], "memory_ms": terms_ms["memory"],
+               "traffic_bytes": res["traffic"], "device_ms": seen["device_ms"],
+               "measured_over_largest_term": seen["device_ms"] / largest,
+               "state_bytes": res["state_bytes"], "peak_bytes": seen["peak_bytes"],
+               "peak_over_state": seen["peak_bytes"] / res["state_bytes"],
+               "trace_s": res["trace_s"]}
+        print(f"phase X(b) {arch} {shape.global_batch} x {shape.seq_len} train step counted on "
+              f"meta (one device) beside phase T: {json.dumps(row)}", flush=True)
+        assert seen["device_ms"] >= largest, row
+        assert seen["peak_bytes"] >= res["state_bytes"], row
+        outs = [p.communicate(timeout=max(1.0, timeout - (time.time() - t0))) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (arch, shape, mesh), p, (stdout, stderr) in zip(DRYRUN_CELLS, procs, outs, strict=True):
+        path = os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")
+        assert p.returncode == 0 and os.path.exists(path), (stdout, stderr[-3000:])
+        with open(path) as f:
+            rec = json.load(f)
+        assert rec["status"] == "ok", rec.get("error")
+        keys = ("devices", "trace_s", "param_bytes_per_device", "state_bytes_per_device",
+                "cache_bytes_per_device", "flops_per_device", "compute_term_s", "memory_term_s",
+                "collective_term_s", "bottleneck", "attn_impl")
+        print(f"phase X(a) dryrun --arch {arch} --shape {shape} --mesh {mesh}: status ok "
+              f"{json.dumps({k: rec[k] for k in keys})}", flush=True)
+    print(f"phase X: {time.time() - t0:.1f} s", flush=True)
 
 
 def runtime_phase(device="cuda"):
@@ -2409,7 +2492,15 @@ def main():
 
     # ---- phase T: training at full width (musicgen-medium, mamba2-2.7b,
     # zamba2-1.2b), then reduced ----
-    training_phase(counters, launches)
+    readings = {}
+    training_phase(counters, launches, readings=readings)
+
+    # ---- phase X: the dry-run; it launches none of the kernels ----------
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    dryrun_phase(readings)
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    assert not any(counts.values()), counts
 
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
     for mod, attr in counters.values():

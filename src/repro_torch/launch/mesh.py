@@ -31,8 +31,13 @@ No pair is listed: gloo takes CUDA tensors of every dtype the port reduces
 itself. The card tests hold every op not listed to that (so a PyTorch
 whose gloo refuses one fails there and names the pair to add).
 
-``make_production_mesh`` (the 256- and 512-chip pods) waits for the port of
-the dry-run tooling.
+:func:`make_production_mesh` builds the JAX package's production meshes,
+(16, 16) ``("data", "model")`` and (2, 16, 16) ``("pod", "data", "model")``,
+as a ``torch.distributed.device_mesh.DeviceMesh`` over a fake process group
+(:func:`make_fake_mesh`): 256 or 512 ranks in one process, seen from rank 0,
+with no card and no communication. ``launch.dryrun`` lays DTensors out on
+it. :func:`mesh_axes`, :func:`mesh_counts` and :func:`axis_sizes` read all
+of these meshes.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclass(frozen=True)
@@ -250,9 +256,57 @@ def reduced_over(x: torch.Tensor, mesh: DistMesh, axis: Axes, *, mean: bool = Fa
     return _Reduced.apply(x, mesh, axis, mean)
 
 
+# the JAX package's production meshes: (shape, axis names) by multi_pod
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+FAKE_WORLD = 512   # ranks of the fake default group: the largest production mesh
+
+
+def make_fake_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> DeviceMesh:
+    """A ``DeviceMesh`` of the first prod(shape) ranks, laid out row-major
+    over ``axis_names``, on a fake process group, as rank 0 sees it.
+
+    The first call initialises the default process group with the "fake"
+    backend (``torch.testing._internal.distributed.fake_pg`` registers it)
+    and ``max(FAKE_WORLD, prod(shape))`` ranks. That is a one-way step for
+    the process: it cannot take another default group afterwards, so run
+    this in a process of its own (the dry-run's CLI, or a subprocess). The
+    fake group's collectives move nothing and return their output buffers
+    as allocated; on meta tensors they only carry shapes."""
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=max(FAKE_WORLD, n))
+    elif dist.get_backend() != "fake":
+        raise RuntimeError(f"the default process group runs {dist.get_backend()!r}; a fake "
+                           "mesh needs a process whose default group is fake")
+    if n > dist.get_world_size():
+        raise ValueError(f"a mesh of {n} ranks exceeds the fake world of "
+                         f"{dist.get_world_size()}")
+    return DeviceMesh("cuda", torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The 256-rank (16, 16) mesh, or with ``multi_pod`` the 512-rank
+    (2, 16, 16) one, over a fake process group (:func:`make_fake_mesh`,
+    which initialises the default group on first use)."""
+    return make_fake_mesh(*PRODUCTION_MESHES[multi_pod])
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh: a ``DeviceMesh`` (its ``mesh_dim_names``
+    and ``shape``), or any mesh with ``axis_names`` and a ``shape`` mapping
+    (LocalMesh, DistMesh, a JAX mesh)."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))
+    return {a: mesh.shape[a] for a in mesh.axis_names}
+
+
 def mesh_axes(mesh) -> Tuple[Tuple[str, ...], str]:
     """(batch_axes, model_axis) for a production-style mesh."""
-    names = mesh.axis_names
+    names = tuple(axis_sizes(mesh))
     if "pod" in names:
         return ("pod", "data"), "model"
     return ("data",), "model"
@@ -261,7 +315,8 @@ def mesh_axes(mesh) -> Tuple[Tuple[str, ...], str]:
 def mesh_counts(mesh) -> Tuple[int, int]:
     """(n_batch, n_model)."""
     batch_axes, model_axis = mesh_axes(mesh)
+    sizes = axis_sizes(mesh)
     nb = 1
     for a in batch_axes:
-        nb *= mesh.shape[a]
-    return nb, mesh.shape[model_axis]
+        nb *= sizes[a]
+    return nb, sizes[model_axis]

@@ -17,18 +17,27 @@ The specs keep the JAX package's stacked layout: a block leaf's spec has a
 leading entry for the layer axis. The port keeps one dict per layer in
 ``params["blocks"]``; :func:`specs_for` gives each layer's leaf its spec
 without that entry, and :func:`shard_tree` / :func:`gather_tree` go
-through it. ``to_named`` has no twin (there is no NamedSharding). The FSDP
-layouts (``fsdp_param_specs``, ``fsdp_batch_axes``, ``fsdp_batch_specs``)
-need ``launch/input_specs.param_structs`` and come with the dry-run tooling.
+through it. The FSDP layouts (:func:`fsdp_param_specs`,
+:func:`fsdp_batch_axes`, :func:`fsdp_batch_specs`) follow the JAX package's
+rules: every leaf over all mesh axes on the last dim their product divides,
+never dim 0 of a leaf of two or more dims; block leaves are judged by their
+stacked shape.
+
+``to_named`` becomes :func:`to_placements`: a spec as DTensor placements on
+a ``DeviceMesh`` (the production meshes of ``launch.mesh``), and
+:func:`distribute_tree` lays a tree of meta tensors out as DTensors by
+its specs, for the dry-run (``launch.dryrun``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import math
+from typing import Any, Dict, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import mesh_axes, mesh_counts
+from repro_torch.launch.mesh import axis_sizes, mesh_axes, mesh_counts
 from repro_torch.tree import leaves_with_paths
 
 
@@ -335,3 +344,154 @@ def _gather_leaf(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 def gather_tree(tree, specs, mesh):
     """Every leaf whole on every rank, from this rank's blocks."""
     return _walk(lambda leaf, spec: _gather_leaf(leaf, spec, mesh), tree, specs_for(tree, specs))
+
+
+# ======================================================================
+# FSDP layouts (JAX ``fsdp_param_specs`` / ``fsdp_batch_axes`` /
+# ``fsdp_batch_specs``)
+# ======================================================================
+
+def fsdp_param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """ZeRO-3/FSDP layout: every parameter sharded over ALL mesh axes on the
+    last dim their product divides, never dim 0 of a leaf of two or more
+    dims (the layer axis of a stacked block leaf, and dim 0 of ``embed``,
+    ``lm_head`` and ``frontend_proj`` too, as in the JAX package). Block
+    leaves are judged by their stacked shape (n_layers, ...) and keep the
+    layer entry, as :func:`param_specs` does."""
+    from repro_torch.launch.input_specs import param_structs
+
+    sizes = axis_sizes(mesh)
+    axes = tuple(sizes)
+    n_all = math.prod(sizes.values())
+
+    def spec_for(shape) -> Spec:
+        start = 1 if len(shape) >= 2 else 0
+        parts = [None] * len(shape)
+        for i in range(len(shape) - 1, start - 1, -1):
+            if shape[i] % n_all == 0 and shape[i] >= n_all:
+                parts[i] = axes
+                break
+        return P(*parts)
+
+    def specs_of(tree, lead=()):
+        if isinstance(tree, torch.Tensor):
+            return spec_for(lead + tuple(tree.shape))
+        if isinstance(tree, Mapping):
+            return {k: specs_of(v, lead) for k, v in tree.items()}
+        return type(tree)(specs_of(v, lead) for v in tree)
+
+    structs = param_structs(cfg)
+    specs = {k: specs_of(v) for k, v in structs.items() if k != "blocks"}
+    specs["blocks"] = specs_of(structs["blocks"][0], (cfg.n_layers,))
+    return specs
+
+
+def fsdp_batch_axes(mesh, batch: int) -> tuple:
+    """Largest suffix of mesh axes whose size product divides the batch
+    (multi-pod: batch 256 < 512 ranks -> shard over (data, model) only)."""
+    sizes = axis_sizes(mesh)
+    axes = tuple(sizes)
+    for start in range(len(axes)):
+        sub = axes[start:]
+        n = math.prod(sizes[a] for a in sub)
+        if n and batch % n == 0 and batch >= n:
+            return sub
+    return axes[-1:]
+
+
+def fsdp_batch_specs(cfg: ModelConfig, mesh, kind: str, batch: int) -> Dict[str, Any]:
+    axes = fsdp_batch_axes(mesh, batch)
+    if kind == "train":
+        if cfg.frontend == "tokens":
+            return {"tokens": P(axes, None), "labels": P(axes, None)}
+        return {"embeds": P(axes, None, None), "labels": P(axes, None)}
+    raise ValueError(kind)
+
+
+# ======================================================================
+# DTensor layouts on a DeviceMesh
+# ======================================================================
+
+def to_placements(spec: Spec, mesh) -> Tuple:
+    """The DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``
+    (the twin of the JAX package's ``to_named``): one placement per mesh
+    dim, ``Shard(d)`` where tensor dim d's entry names that mesh dim's axis,
+    else ``Replicate()``.
+
+    A dim sharded over several axes (a tuple) becomes ``Shard(d)`` on each
+    of their mesh dims. DTensor splits a dim sharded on several mesh dims in
+    mesh-dim order: the piece a rank holds is numbered row-major over its
+    coordinates on those mesh dims, the first the slowest. That is the
+    order of a PartitionSpec's tuple when it lists its axes in the mesh's
+    order, as every spec of this module does; a tuple in another order
+    raises ValueError (DTensor's plain Shard cannot express it)."""
+    names = tuple(axis_sizes(mesh))
+    placements = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"axes {axes} of dim {dim} are not in the mesh's order {names}")
+        for i in where:
+            placements[i] = Shard(dim)
+    return tuple(placements)
+
+
+def local_shape(shape, placements, mesh) -> Tuple[int, ...]:
+    """The shape of rank 0's block of a tensor of ``shape`` under
+    ``placements``: each ``Shard(d)``, in mesh-dim order, keeps the first of
+    as many pieces as its mesh dim has ranks, ceil(size / n) rows (DTensor's
+    ``torch.chunk`` split)."""
+    out = list(shape)
+    for n, pl in zip(tuple(axis_sizes(mesh).values()), placements, strict=True):
+        if isinstance(pl, Shard):
+            out[pl.dim] = -(-out[pl.dim] // n)
+    return tuple(out)
+
+
+def distribute_leaf(leaf: torch.Tensor, spec: Spec, mesh) -> DTensor:
+    """A meta DTensor of ``leaf``'s global shape and dtype laid out by
+    ``spec`` on ``mesh``, rank 0's block of it local. Nothing is allocated
+    and nothing is communicated."""
+    placements = to_placements(spec, mesh)
+    local = torch.empty(local_shape(leaf.shape, placements, mesh), dtype=leaf.dtype,
+                        device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=leaf.shape,
+                              stride=torch.empty(leaf.shape, device="meta").stride())
+
+
+def distribute_tree(tree, specs, mesh):
+    """:func:`distribute_leaf` of every leaf of a tree of meta tensors, the
+    specs resolved by :func:`specs_for` (per-layer blocks take their stacked
+    spec without the layer entry)."""
+    return _walk(lambda leaf, spec: distribute_leaf(leaf, spec, mesh), tree,
+                 specs_for(tree, specs))
+
+
+def shard_bytes(shape, dtype: torch.dtype, spec: Spec, mesh) -> int:
+    """Per-device bytes of one array under ``spec`` (the JAX package's
+    ``_shard_bytes``): ceil(dim / parts) on each sharded dim."""
+    sizes = axis_sizes(mesh)
+    n = dtype.itemsize
+    for i, d in enumerate(shape):
+        parts = 1
+        if i < len(spec) and spec[i] is not None:
+            axes = spec[i] if isinstance(spec[i], tuple) else (spec[i],)
+            for a in axes:
+                parts *= sizes[a]
+        n *= math.ceil(d / parts)
+    return n
+
+
+def tree_device_bytes(tree, specs, mesh) -> int:
+    """Per-device bytes of a tree of tensors (meta ones included) under its
+    specs (the JAX package's ``tree_device_bytes``)."""
+    total = [0]
+
+    def acc(leaf, spec):
+        total[0] += shard_bytes(tuple(leaf.shape), leaf.dtype, spec, mesh)
+
+    _walk(acc, tree, specs_for(tree, specs))
+    return total[0]

@@ -31,12 +31,15 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import combine_partials
 from repro_torch.launch.mesh import on_ranks
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import (apply_rope, blocks, dense_init, from_block,
+                                       kept_shards, merge_heads, reduce_partial,
+                                       reduced_grad, whole_groups)
 
 
 def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -68,11 +71,13 @@ def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     H, KV, hd = cfg.eff_n_heads, cfg.eff_n_kv_heads, cfg.resolved_head_dim
+    x = reduced_grad(x)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = (whole_groups(t, KV) for t in (q, k, v))    # whole GQA groups a rank
     return q.reshape(b, s, H, hd), k.reshape(b, s, KV, hd), v.reshape(b, s, KV, hd)
 
 
@@ -95,12 +100,27 @@ def _roped_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
 
 
+def _flash(q, k, v, cfg: ModelConfig, impl: str) -> torch.Tensor:
+    """``ops.flash_attention``, causal under the config's window. On
+    DTensors (the dry-run) each rank runs it on its block, its batch rows
+    and its whole kv-head groups (as q holds them, k and v laid out alike,
+    the sequence whole), as GSPMD partitions attention: DTensor would
+    otherwise propagate every op of the attention's loop, merging sharded
+    dims that it can only track at a cost that grows with the mesh."""
+    if not isinstance(q, DTensor):
+        return ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
+    pl = kept_shards(q, {0: 0, 2: 2})
+    o = ops.flash_attention(*blocks(pl, q, k, v), causal=True, window=cfg.sliding_window,
+                            impl=impl)
+    return DTensor.from_local(o, q.device_mesh, pl, run_check=False)
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, impl: str) -> torch.Tensor:
     """Full-sequence causal attention. x (B,S,D)."""
     b, s, _ = x.shape
     q, k, v = _roped_qkv(p, x, cfg)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
-    return o.reshape(b, s, -1) @ p["wo"]
+    o = _flash(q, k, v, cfg, impl)
+    return reduce_partial(merge_heads(o, cfg.eff_n_kv_heads) @ p["wo"])
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl: str):
@@ -111,16 +131,28 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, smax: int, *, impl:
     ``p % smax``."""
     b, s, _ = x.shape
     q, k, v = _roped_qkv(p, x, cfg)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
-    out = o.reshape(b, s, -1) @ p["wo"]
+    o = _flash(q, k, v, cfg, impl)
+    out = reduce_partial(o.reshape(b, s, -1) @ p["wo"])
     if cfg.sliding_window is not None and smax < s:
         # the last smax positions, position p at row p % smax as decode expects
         k, v = (torch.roll(t[:, s - smax:], s % smax, dims=1) for t in (k, v))
-    pad = (0, 0, 0, 0, 0, smax - k.shape[1])
-    k_cache, v_cache = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    k_cache, v_cache = _padded(k, smax), _padded(v, smax)
     if cfg.kv_cache_dtype == "int8":
         return out, kv_quantize(k_cache), kv_quantize(v_cache)
     return out, k_cache, v_cache
+
+
+def _padded(t: torch.Tensor, smax: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, smax, KV, hd), zero rows after the S held. A
+    DTensor (the dry-run) is padded on each rank's block, its rows and heads
+    as held: some PyTorch releases' DTensor cannot plan ``pad``'s layout."""
+    pad = (0, 0, 0, 0, 0, smax - t.shape[1])
+    if not isinstance(t, DTensor):
+        return torch.nn.functional.pad(t, pad)
+    pl = kept_shards(t, {0: 0, 2: 2})
+    block, = blocks(pl, t)
+    return DTensor.from_local(torch.nn.functional.pad(block, pad), t.device_mesh, pl,
+                              run_check=False)
 
 
 def _cache_smax(cache) -> int:
@@ -130,11 +162,42 @@ def _cache_smax(cache) -> int:
 def _write_row(cache: torch.Tensor, index: tuple, new: torch.Tensor,
                active: Optional[torch.Tensor]) -> None:
     """cache[index] = new in place, where the bool mask ``active`` (B,) is
-    given only for active sequences."""
+    given only for active sequences. A DTensor cache (the dry-run's) is
+    written by :func:`_write_row_dtensor`."""
+    if isinstance(cache, DTensor):
+        _write_row_dtensor(cache, index[1], new, active)
+        return
     if active is not None:
         keep = active.view(-1, *([1] * (new.dim() - 1)))
         new = torch.where(keep, new, cache[index])
     cache[index] = new
+
+
+def _write_row_dtensor(cache: DTensor, slot, new, active) -> None:
+    """Each sequence's row ``new`` (B, ...) written at its ``slot`` (B,) of
+    the DTensor ``cache`` (B, Smax, ...) in place, on this rank's block:
+    the GSPMD partition of the JAX package's update, which DTensor does not
+    propagate in place. ``new``, ``slot`` and ``active`` take the cache's
+    layout of their dims (the sequence dim dropped); the rank whose block of
+    a sequence-sharded cache holds a row's slot writes it, the others keep
+    theirs (the sharded decode's ``in_rng``)."""
+    mesh = cache.device_mesh
+    rows_pl = kept_shards(cache, {0: 0})
+    new_pl = kept_shards(cache, {0: 0, **{d: d - 1 for d in range(2, cache.dim())}})
+    block = cache.to_local()
+    n_rows, seq = block.shape[1], 0
+    for i, pl in enumerate(cache.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            seq = seq * mesh.size(i) + mesh.get_local_rank(i)
+    slot_l, new_l, active_l = blocks([rows_pl, new_pl, rows_pl], slot, new, active)
+    slot_l = slot_l - seq * n_rows
+    write = (slot_l >= 0) & (slot_l < n_rows)
+    if active_l is not None:
+        write = write & active_l
+    index = (torch.arange(block.shape[0], device=block.device),
+             torch.clamp(slot_l, 0, n_rows - 1))
+    keep = write.view(-1, *([1] * (block.dim() - 2)))
+    block[index] = torch.where(keep, new_l.to(block.dtype), block[index])
 
 
 def _append(k_cache, v_cache, k_new, v_new, index, active):
@@ -167,7 +230,8 @@ def attn_decode(
     at its length (clamped to Smax-1; at ``length % Smax`` in a rolling
     buffer), and where the bool mask ``active`` (B,) is given, only active
     sequences' rows change. An int8 cache is dequantized to ``x.dtype`` for
-    the attention, as in the JAX package."""
+    the attention, as in the JAX package. On DTensors (the dry-run) the
+    attention runs on each rank's block (:func:`_decode_dtensor`)."""
     b = x.shape[0]
     smax = _cache_smax(k_cache)
     quant = cfg.kv_cache_dtype == "int8"
@@ -177,8 +241,26 @@ def attn_decode(
     _append(k_cache, v_cache, k_new, v_new, index, active)
     if quant:
         k_cache, v_cache = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
-    o = ops.decode_attention(q.contiguous(), k_cache, v_cache, eff_len, window=window, impl=impl)
-    return o.reshape(b, 1, -1) @ p["wo"]
+    if isinstance(x, DTensor):
+        o = _decode_dtensor(q, k_cache, v_cache, eff_len, window, impl)
+    else:
+        o = ops.decode_attention(q.contiguous(), k_cache, v_cache, eff_len, window=window,
+                                 impl=impl)
+    return reduce_partial(o.reshape(b, 1, -1) @ p["wo"])
+
+
+def _decode_dtensor(q: DTensor, k_cache: DTensor, v_cache: DTensor, eff_len, window, impl):
+    """``ops.decode_attention`` on this rank's block of DTensors (the
+    dry-run): the cache's batch rows and kv heads as it holds them, its
+    sequence gathered whole (as GSPMD gathers a sequence-sharded cache for
+    the JAX package's decode), q's rows and query heads laid out alike."""
+    cache_pl = kept_shards(k_cache, {0: 0, 2: 2})
+    q_pl = kept_shards(k_cache, {0: 0, 2: 1})
+    q_l, = blocks(q_pl, q)
+    k_l, v_l = blocks(cache_pl, k_cache, v_cache)
+    len_l, = blocks(kept_shards(k_cache, {0: 0}), eff_len)
+    o = ops.decode_attention(q_l.contiguous(), k_l, v_l, len_l, window=window, impl=impl)
+    return DTensor.from_local(o, q.device_mesh, q_pl, run_check=False)
 
 
 def _decode_plan(cfg: ModelConfig, lengths: torch.Tensor, smax: int):
@@ -217,6 +299,9 @@ def attn_decode_sharded(
     if on_ranks(mesh_info):
         return _attn_decode_dist(p, x, k_cache, v_cache, lengths, cfg, mesh_info, impl=impl,
                                  active=active)
+    if isinstance(x, DTensor):
+        return _attn_decode_dtensor(p, x, k_cache, v_cache, lengths, cfg, mesh_info,
+                                    impl=impl, active=active)
     b = x.shape[0]
     quant = cfg.kv_cache_dtype == "int8"
     smax = _cache_smax(k_cache)
@@ -288,6 +373,59 @@ def _attn_decode_dist(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch
     acc_g = mesh.psum(acc * coef[..., None], ma)
     o = (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(x.dtype)
     return o.reshape(b, 1, H * hd) @ p["wo"]
+
+
+def _attn_decode_dtensor(p: dict, x: DTensor, k_cache, v_cache, lengths, cfg: ModelConfig,
+                         mesh_info, *, impl: str, active: Optional[torch.Tensor]) -> DTensor:
+    """The JAX package's ``attn_decode_sharded`` on DTensors (the dry-run):
+    the projections and ``wo`` as their layouts propagate; the caches laid
+    out as its shard_map takes them, sequence over the model axis and rows
+    over the batch axes where the batch divides (a cache held kv-head
+    sharded is resharded, and written back after the step, as the step's
+    out_shardings do); then :func:`_attn_decode_dist`'s body on this rank's
+    blocks, the partials combined over the model axis."""
+    b = x.shape[0]
+    quant = cfg.kv_cache_dtype == "int8"
+    hd, H = cfg.resolved_head_dim, cfg.eff_n_heads
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    ma = names.index(mesh_info.model_axis)
+    shardable = b % mesh_info.n_batch == 0 and b >= mesh_info.n_batch
+    rows = [Shard(0) if shardable and n in mesh_info.batch_axes else Replicate()
+            for n in names]
+    seq = [Shard(1) if i == ma else pl for i, pl in enumerate(rows)]
+
+    def laid_out(c):
+        return tuple(map(laid_out, c)) if isinstance(c, tuple) else c.redistribute(mesh, seq)
+
+    kc, vc = laid_out(k_cache), laid_out(v_cache)
+    q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
+    qg = (q.float() * hd ** -0.5).redistribute(mesh, rows).to_local().contiguous()
+    slot, eff_len, win = _decode_plan(cfg, lengths, _cache_smax(kc))
+    _append(kc, vc, k_new, v_new, (None, slot), active)
+    k_eff, v_eff = (tuple(t.to_local() for t in c) if quant else c.to_local()
+                    for c in (kc, vc))
+    if quant:
+        k_eff, v_eff = kv_dequantize(*k_eff, x.dtype), kv_dequantize(*v_eff, x.dtype)
+    chunk = k_eff.shape[1]
+    off = mesh.get_local_rank(ma) * chunk
+    eff = eff_len.redistribute(mesh, rows).to_local()
+    acc, m, l = ops.decode_attention_partials(qg, k_eff, v_eff, torch.clamp(eff - off, 0, chunk),
+                                              scale=1.0, window=win, impl=impl)
+
+    def combined(t, op):
+        return from_block(t, mesh, rows, {ma: op}).to_local()
+
+    m_g = combined(m, "max")
+    coef = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    l_g, acc_g = combined(l * coef, "sum"), combined(acc * coef[..., None], "sum")
+    o = (acc_g / torch.clamp(l_g[..., None], min=1e-30)).to(x.dtype)
+    for whole, part in ((k_cache, kc), (v_cache, vc)):
+        for w, t in zip(*((whole, part) if quant else ((whole,), (part,))), strict=True):
+            if w is not t:
+                w.copy_(t)
+    o = DTensor.from_local(o.reshape(o.shape[0], 1, H * hd), mesh, rows, run_check=False)
+    return reduce_partial(o @ p["wo"])
 
 
 def attn_decode_dispatch(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor,

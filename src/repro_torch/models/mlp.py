@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, reduce_partial, reduced_grad
 
 
 def init_mlp_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -19,5 +19,6 @@ def init_mlp_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.d
 
 
 def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
+    x = reduced_grad(x)
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return reduce_partial(h @ p["w_down"])

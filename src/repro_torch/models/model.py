@@ -46,8 +46,14 @@ Design notes
   decode runs sequence-sharded (``attention.seq_sharded``); an MoE block
   holds E / n_model experts a rank, or every expert's d_ff / n_model
   (``moe.moe_forward``). After their collectives the model axis's ranks
-  hold the same logits. The JAX package's ``_act_constraint`` (an FSDP
-  layout hint) has no twin: under a mesh it changes no number.
+  hold the same logits. On DTensors over a ``DeviceMesh`` (the dry-run,
+  ``launch.dryrun``) every entry point runs the program GSPMD makes of the
+  JAX package's jit, DTensor propagating the layouts, with the reshards
+  GSPMD makes silently made explicit (``common``'s helpers, the blocks'
+  ``*_dtensor`` paths, :func:`_embed_tokens`, :func:`_dtensor_cache`;
+  README lists them), and ``cfg.fsdp_act_constraint`` pins the residual
+  stream batch-sharded over every mesh axis (:func:`_act_constraint`). A
+  plain tensor takes none of these branches.
 * entry points default to ``device="cuda"``; nothing moves to the CPU
   unless the caller asks for it.
 """
@@ -58,6 +64,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_axes, mesh_counts, on_ranks
@@ -65,7 +72,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import embed_init, rms_norm
+from repro_torch.models.common import embed_init, reduce_partial, reduced_grad, rms_norm
 
 _IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
 
@@ -124,10 +131,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Dict[str, Any]:
     """Random weights: truncated-normal fan-in for matrices, normal(0.02) for
     the embedding and LM head, ones for norms, zeros for QKV biases. Drawn
-    from ``generator`` (a seed-0 generator on ``device`` if None)."""
+    from ``generator`` (a seed-0 generator on ``device`` if None). On the
+    meta device the leaves have shapes and dtypes and no values, and
+    nothing is drawn (``launch.input_specs``)."""
     _check_family(cfg)
     device = torch.device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     dtype = _dtype(cfg)
     D, Vp = cfg.d_model, cfg.padded_vocab
@@ -205,12 +214,23 @@ def embed_inputs(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]) ->
     embeddings (patches or frames), which go through ``frontend_proj``."""
     if "embeds" in batch:
         return batch["embeds"].to(_dtype(cfg)) @ params["frontend_proj"]
-    return params["embed"][batch["tokens"]]
+    return _embed_tokens(params, batch["tokens"])
+
+
+def _embed_tokens(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``. A DTensor table (the dry-run's,
+    vocab-sharded over the model axis) is read by a vocab-parallel lookup,
+    each rank's rows of its own vocab range summed over the axis, as GSPMD
+    partitions the JAX package's gather; DTensor would otherwise reshard
+    the table and hand back rows split over their features."""
+    if isinstance(params["embed"], DTensor):
+        return reduced_grad(reduce_partial(torch.nn.functional.embedding(tokens, params["embed"])))
+    return params["embed"][tokens]
 
 
 def lm_logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head; padded vocab tail masked to -1e30.  fp32 out."""
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = reduced_grad(rms_norm(h, params["final_norm"], cfg.norm_eps))
     logits = (h @ params["lm_head"]).float()
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
@@ -241,19 +261,37 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
+def _act_constraint(h: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[MeshContext]
+                    ) -> torch.Tensor:
+    """FSDP mode (``cfg.fsdp_act_constraint``): a DTensor residual stream
+    redistributed batch-sharded over every mesh axis that divides it
+    (``launch.shardings.fsdp_batch_axes``), so that the weights are
+    gathered and the activations stay put, as the JAX package's sharding
+    constraint makes GSPMD do. A plain tensor passes unchanged: under a
+    DistMesh each rank already holds its rows."""
+    if not (cfg.fsdp_act_constraint and mesh_info is not None and isinstance(h, DTensor)):
+        return h
+    from repro_torch.launch.shardings import P, fsdp_batch_axes, to_placements
+
+    axes = fsdp_batch_axes(mesh_info.mesh, h.shape[0])
+    return h.redistribute(h.device_mesh, to_placements(P(axes, None, None), mesh_info.mesh))
+
+
 def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             mesh_info: Optional[MeshContext] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B,S,Vp) fp32, aux_loss
     scalar: the mean load-balance loss over the layers for MoE, else 0).
     Under ``cfg.remat`` each block (each Mamba2 layer of a hybrid, whose
     shared attention is not) is recomputed in the backward pass, as the JAX
-    package checkpoints the body of its layer scan. Only the MoE blocks read
+    package checkpoints the body of its layer scan. Only the MoE blocks and,
+    on DTensors, the FSDP constraint (:func:`_act_constraint`) read
     ``mesh_info``."""
     _check_family(cfg)
     impl = _IMPLS[cfg.attn_impl]
-    h = embed_inputs(params, cfg, batch)
+    h = _act_constraint(embed_inputs(params, cfg, batch), cfg, mesh_info)
     if cfg.family in ("ssm", "hybrid"):
         def ssm_block(blk, h):
+            h = _act_constraint(h, cfg, mesh_info)
             return h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
                                            impl=impl)
 
@@ -267,10 +305,11 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
         return lm_logits(params, cfg, h), torch.zeros((), device=h.device)
 
     def attn_block(blk, h):
+        h = _act_constraint(h, cfg, mesh_info)
         h = h + attn_mod.attn_forward(blk["attn"], rms_norm(h, blk["ln1"], cfg.norm_eps),
                                       cfg, impl=impl)
         y, lb_i = _ffn(blk, h, cfg, mesh_info)
-        return h + y, lb_i
+        return _act_constraint(h + y, cfg, mesh_info), lb_i
 
     lb = torch.zeros((), device=h.device)
     for blk in params["blocks"]:
@@ -330,6 +369,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
     return {"lengths": lengths, "k": leaf(), "v": leaf()}
 
 
+def _dtensor_cache(cfg: ModelConfig, batch: int, max_len: int, mesh_info: MeshContext):
+    """An empty cache of meta DTensors laid out on ``mesh_info``'s
+    ``DeviceMesh`` by ``launch.shardings.cache_specs``, the out_shardings
+    of the JAX package's prefill in the dry-run."""
+    from repro_torch.launch import shardings
+
+    mesh = mesh_info.mesh
+    return shardings.distribute_tree(init_cache(cfg, batch, max_len, device="meta"),
+                                     shardings.cache_specs(cfg, mesh, batch, max_len), mesh)
+
+
 def _layer(leaf, i: int):
     """Layer i of a K or V cache leaf: a tensor, or an int8 (values, scales) pair."""
     return tuple(a[i] for a in leaf) if isinstance(leaf, tuple) else leaf[i]
@@ -365,7 +415,10 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
         if cfg.family == "hybrid":
             cache["k"], cache["v"] = (torch.stack(t) for t in zip(*kv, strict=True))
         return lm_logits(params, cfg, h[:, -1]), cache
-    cache = init_cache(cfg, b, max_len, device=h.device, mesh_info=mesh_info)
+    if isinstance(h, DTensor):
+        cache = _dtensor_cache(cfg, b, max_len, mesh_info)
+    else:
+        cache = init_cache(cfg, b, max_len, device=h.device, mesh_info=mesh_info)
     cache["lengths"].fill_(s)
     smax = _kv_smax(cfg, max_len)
     rows = _seq_rows(cfg, mesh_info, smax)
@@ -399,7 +452,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
     impl = _IMPLS[cfg.attn_impl]
     lengths = cache["lengths"]
     step = 1 if active is None else active.to(torch.int32)
-    h = params["embed"][tokens][:, None, :]             # (B,1,D)
+    h = _embed_tokens(params, tokens)[:, None, :]       # (B,1,D)
     if cfg.family in ("ssm", "hybrid"):
         states = cache["ssm_state"]
         for i, blk in enumerate(params["blocks"]):

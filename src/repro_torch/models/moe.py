@@ -43,10 +43,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import on_ranks, reduced_over, sum_grads_over
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, from_block, local_block
 
 F32_PARAMS = ("router",)  # float32 in every config, as in the JAX package
 
@@ -149,8 +150,12 @@ def _moe_local(p: dict, x: torch.Tensor, cfg: ModelConfig, n_local_experts: int,
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[object] = None):
     """MoE block.  x (B,S,D) -> (y (B,S,D), {"lb_loss", "drop_frac"}).
-    Under a DistMesh, ``p`` is this rank's block and ``x`` its rows."""
+    Under a DistMesh, ``p`` is this rank's block and ``x`` its rows; on
+    DTensors, the shard_map of the JAX package over their mesh
+    (:func:`_moe_dtensor`)."""
     E = cfg.moe.n_experts
+    if isinstance(x, DTensor):
+        return _moe_dtensor(p, x, cfg, mesh_info)
     if not on_ranks(mesh_info):
         y, aux = _moe_local(p, x, cfg, E)
         return y, {"lb_loss": aux["lb_loss"], "drop_frac": 1.0 - aux["kept"] / aux["slots"]}
@@ -165,4 +170,44 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh_info: Optional[
     y = reduced_over(y, mesh, ma)
     lb = reduced_over(aux["lb_loss"], mesh, ma, mean=True)
     kept = mesh.psum(aux["kept"], ma) if ep else mesh.pmean(aux["kept"], ma)
+    return y, {"lb_loss": lb, "drop_frac": 1.0 - kept / aux["slots"]}
+
+
+def _moe_dtensor(p: dict, x: DTensor, cfg: ModelConfig, mesh_info):
+    """The JAX package's ``shard_map`` of the block over a ``DeviceMesh``
+    (the dry-run's DTensors), explicitly, as DTensor cannot propagate the
+    routing's sorts and scatters: ``x`` laid out P(batch, None, None) (the
+    batch axes where the batch divides over them), the experts over the
+    model axis (expert parallel) or their d_ff (expert TP), :func:`_moe_local`
+    on this rank's blocks, its output summed over the model axis, the
+    load-balance loss and the kept slots averaged (summed under EP) over
+    it and averaged over the batch shards."""
+    from repro_torch.launch.shardings import P, to_placements
+
+    mesh, ma, nm = x.device_mesh, mesh_info.model_axis, mesh_info.n_model
+    E = cfg.moe.n_experts
+    ep = E % nm == 0
+    if not ep and cfg.moe.d_ff_expert % nm:
+        raise ValueError(f"{E} experts and d_ff_expert {cfg.moe.d_ff_expert} do not split "
+                         f"over {nm} ranks")
+    shardable = x.shape[0] % mesh_info.n_batch == 0 and x.shape[0] >= mesh_info.n_batch
+    batch = mesh_info.batch_axes if shardable else None
+    w_spec = ({"w_gate": P(ma, None, None), "w_up": P(ma, None, None),
+               "w_down": P(ma, None, None)} if ep else
+              {"w_gate": P(None, None, ma), "w_up": P(None, None, ma),
+               "w_down": P(None, ma, None)})
+    w_spec["router"] = P(None, None)
+    x_pl = to_placements(P(batch, None, None), mesh)
+    n_local = E // nm if ep else E
+    names = mesh.mesh_dim_names
+    offset = mesh.get_local_rank(names.index(ma)) * n_local if ep else 0
+    y, aux = _moe_local({k: local_block(v, to_placements(w_spec[k], mesh)) for k, v in p.items()},
+                        local_block(x, x_pl), cfg, n_local, offset)
+    model = {names.index(ma): "sum"}
+    y = from_block(y, mesh, x_pl, model)
+    scalar = [Replicate()] * mesh.ndim
+    over_batch = {names.index(a): "avg" for a in (batch or ())}
+    lb = from_block(aux["lb_loss"], mesh, scalar, {**over_batch, names.index(ma): "avg"})
+    kept = from_block(aux["kept"], mesh, scalar,
+                      {**over_batch, names.index(ma): "sum" if ep else "avg"})
     return y, {"lb_loss": lb, "drop_frac": 1.0 - kept / aux["slots"]}

@@ -25,10 +25,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import (blocks, dense_init, kept_shards, reduce_partial,
+                                       reduced_grad, rms_norm)
 
 F32_PARAMS = ("A_log", "D", "dt_bias")  # float32 in every config, as in the JAX package
 
@@ -100,6 +102,47 @@ def _dt(p: dict, h: torch.Tensor) -> torch.Tensor:
     return F.softplus((h @ p["w_dt"]).float() + p["dt_bias"])
 
 
+def _ssd(x, dt, A, Bm, Cm, D, h0, s, impl: str):
+    """``ops.ssd_scan`` (chunk ``s.chunk``), on DTensors (the dry-run) per
+    rank (:func:`_per_head_block`)."""
+    def scan(x, dt, A, Bm, Cm, D, h0):
+        return ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=s.chunk, impl=impl, initial_state=h0)
+
+    if not isinstance(x, DTensor):
+        return scan(x, dt, A, Bm, Cm, D, h0)
+    return _per_head_block(scan, x, dt, A, Bm, Cm, D, h0)
+
+
+def _per_head_block(fn, x, dt, A, Bm, Cm, D, state):
+    """``fn(x, dt, A, B, C, D, state) -> (y, state)`` (the SSD scan, or a
+    decode step; x (B, [S,] H, P)) on this rank's block of DTensors, its
+    batch rows and heads as x holds them, as GSPMD partitions the
+    recurrence, which is independent across both: dt, A, D and the state
+    laid out alike, B and C whole (one group) or split as the heads (whole
+    groups a rank; else the heads are gathered). DTensor would otherwise
+    propagate every op of the scan, merging sharded dims that it can only
+    track at a cost that grows with the mesh. Plain tensors go to ``fn``
+    as they are."""
+    if not isinstance(x, DTensor):
+        return fn(x, dt, A, Bm, Cm, D, state)
+    h = x.dim() - 2                                   # the head dim of x
+    mesh = x.device_mesh
+    g = Bm.shape[-2]
+    split = [i for i, pl in enumerate(x.placements) if isinstance(pl, Shard) and pl.dim == h]
+    parts = 1
+    for i in split:
+        parts *= mesh.size(i)
+    heads = g == 1 or g % parts == 0
+    x_pl = kept_shards(x, {0: 0, h: h} if heads else {0: 0})
+    head_pl = kept_shards(x, {h: 0} if heads else {})
+    bc_pl = kept_shards(x, {0: 0} if g == 1 or not heads else {0: 0, h: h})
+    state_pl = kept_shards(x, {0: 0, h: 1} if heads else {0: 0})
+    y, out = fn(*blocks([x_pl, x_pl, head_pl, bc_pl, bc_pl, head_pl, state_pl],
+                        x, dt, A, Bm, Cm, D, state))
+    return (DTensor.from_local(y, mesh, x_pl, run_check=False),
+            DTensor.from_local(out, mesh, state_pl, run_check=False))
+
+
 def ssm_forward(p: dict, hidden: torch.Tensor, cfg: ModelConfig, *, impl: str,
                 return_state: bool = False, initial_state=None):
     """Full-sequence Mamba2 block.  hidden (B,S,D).
@@ -107,6 +150,7 @@ def ssm_forward(p: dict, hidden: torch.Tensor, cfg: ModelConfig, *, impl: str,
     s, di, nh, gn = _dims(cfg)
     b, seq, _ = hidden.shape
     st = initial_state or (None, None, None, None)
+    hidden = reduced_grad(hidden)
     z = hidden @ p["w_z"]
     x, cxs = _causal_conv(hidden @ p["w_x"], p["conv_x_w"], p["conv_x_b"], st[0])
     Bm, cbs = _causal_conv(hidden @ p["w_B"], p["conv_B_w"], p["conv_B_b"], st[1])
@@ -116,11 +160,10 @@ def ssm_forward(p: dict, hidden: torch.Tensor, cfg: ModelConfig, *, impl: str,
     x = x.reshape(b, seq, nh, s.head_dim)
     Bm = Bm.reshape(b, seq, s.n_groups, s.d_state)
     Cm = Cm.reshape(b, seq, s.n_groups, s.d_state)
-    y, ssm_state = ops.ssd_scan(x, dt, A, Bm, Cm, p["D"], chunk=s.chunk, impl=impl,
-                                initial_state=st[3])
+    y, ssm_state = _ssd(x, dt, A, Bm, Cm, p["D"], st[3], s, impl)
     y = y.reshape(b, seq, di)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = reduce_partial(y @ p["out_proj"])
     if return_state:
         return out, (cxs, cbs, ccs, ssm_state)
     return out
@@ -142,10 +185,10 @@ def ssm_decode(p: dict, hidden: torch.Tensor, state, cfg: ModelConfig):
     x = x.reshape(b, nh, s.head_dim)
     Bm = Bm.reshape(b, s.n_groups, s.d_state)
     Cm = Cm.reshape(b, s.n_groups, s.d_state)
-    y, new_ssm = ops.ssm_decode_step(x, dt, A, Bm, Cm, p["D"], ssm_state)
+    y, new_ssm = _per_head_block(ops.ssm_decode_step, x, dt, A, Bm, Cm, p["D"], ssm_state)
     y = y.reshape(b, di)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None], (cx, cb, cc, new_ssm)
+    return reduce_partial(y @ p["out_proj"])[:, None], (cx, cb, cc, new_ssm)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype: torch.dtype, device

@@ -18,6 +18,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, tree_map
 
@@ -57,6 +58,16 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves(tree)))
 
 
+def _assign(dst: torch.Tensor, value: torch.Tensor) -> None:
+    """dst.copy_(value); a DTensor value (the dry-run's, whose layout the
+    arithmetic may have changed: ZeRO-sharded moments beside a
+    tensor-parallel gradient) is laid out as ``dst`` first, as GSPMD lays
+    out the JAX package's updated state by its out_shardings."""
+    if isinstance(value, DTensor):
+        value = value.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(value)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, c: AdamWConfig, *, gnorm=None):
     """One AdamW step, in place. Returns (params, opt_state, metrics) with
@@ -75,13 +86,13 @@ def apply_updates(params, grads, opt_state, c: AdamWConfig, *, gnorm=None):
 
     def upd(p, g, m, v):
         g = g.float() * scale
-        m.copy_(c.b1 * m + (1 - c.b1) * g)
-        v.copy_(c.b2 * v + (1 - c.b2) * g * g)
+        _assign(m, c.b1 * m + (1 - c.b1) * g)
+        _assign(v, c.b2 * v + (1 - c.b2) * g * g)
         mhat = m / b1t
         vhat = v / b2t
         pf = p.float()
         step_p = mhat / (torch.sqrt(vhat) + c.eps) + c.weight_decay * pf
-        p.copy_((pf - lr * step_p).to(p.dtype))
+        _assign(p, (pf - lr * step_p).to(p.dtype))
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step + 1}

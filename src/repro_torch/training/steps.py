@@ -27,11 +27,13 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import shardings
 from repro_torch.launch.mesh import on_ranks
 from repro_torch.models import model as model_mod
+from repro_torch.models.common import kept_shards, reduce_partial
 from repro_torch.training import optimizer as opt_mod
 from repro_torch.training.loss import softmax_xent
 from repro_torch.tree import leaves_with_paths, map_with_paths, tree_map
@@ -63,11 +65,23 @@ def loss_and_grads(params, cfg: ModelConfig, batch, mesh_info=None
     live = {path: leaf.detach().requires_grad_() for path, leaf in leaves_with_paths(params)}
     total, metrics = loss_fn(map_with_paths(lambda path, _: live[path], params), cfg, batch,
                              mesh_info)
+    # a DTensor loss summed over batch shards is reduced first: seeded while
+    # still partial, its backward would run on every rank at the whole batch
+    total = reduce_partial(total)
     grads = torch.autograd.grad(total, list(live.values()), allow_unused=True)
-    grad_at = {path: torch.zeros_like(p) if g is None else g
+    grad_at = {path: torch.zeros_like(p) if g is None else _laid_out_as(g, p)
                for (path, p), g in zip(live.items(), grads, strict=True)}
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             map_with_paths(lambda path, _: grad_at[path], params))
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's layout, its pending sums over
+    the batch shards reduced once (a reduce-scatter or an all-reduce), as
+    GSPMD lays out the JAX package's gradients; a plain gradient as it is."""
+    if not isinstance(g, DTensor):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def _micro(batch: Dict[str, torch.Tensor], i: int, n: int) -> Dict[str, torch.Tensor]:
@@ -159,11 +173,21 @@ def train_step(
     return new_params, new_opt, {**metrics, **om}
 
 
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocab (B, Vp) -> (B,) int32. DTensor logits (the
+    dry-run's, vocab-sharded) are gathered whole over the vocab first, the
+    rows as they are held: DTensor's argmax over a sharded dim fails where a
+    rank holds one row."""
+    if isinstance(logits, DTensor):
+        logits = logits.redistribute(logits.device_mesh, kept_shards(logits, {0: 0}))
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 @torch.no_grad()
 def serve_step(params, cache, tokens, *, cfg: ModelConfig, mesh_info=None):
     """One decode step: greedy next-token.  tokens (B,) -> (next (B,), logits, cache)."""
     logits, cache = model_mod.decode_step(params, cfg, cache, tokens, mesh_info=mesh_info)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    nxt = _greedy(logits)
     return nxt, logits, cache
 
 
@@ -171,6 +195,6 @@ def serve_step(params, cache, tokens, *, cfg: ModelConfig, mesh_info=None):
 def prefill_step(params, batch, *, cfg: ModelConfig, max_len: int, mesh_info=None):
     """Prompt ingestion: returns (first sampled token (B,), cache)."""
     logits, cache = model_mod.prefill(params, cfg, batch, max_len, mesh_info)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    nxt = _greedy(logits)
     return nxt, cache
 

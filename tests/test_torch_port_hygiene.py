@@ -39,6 +39,7 @@ COPIED = [
     "core/runtime.py",
     "analysis.py",
     "data/pipeline.py",
+    "launch/roofline.py",
 ] + sorted(str(p.relative_to(SRC / "repro")) for p in (SRC / "repro" / "configs").glob("*.py"))
 
 # The copies may differ from their originals by these edits, applied to
@@ -128,9 +129,10 @@ def test_port_uses_no_library_attention_or_jax(banned):
 
 
 @pytest.mark.parametrize("rel", ["launch/dist.py", "launch/shardings.py",
-                                 "training/compression.py"])
+                                 "training/compression.py", "launch/dryrun.py",
+                                 "launch/input_specs.py", "launch/mesh.py"])
 def test_multi_device_modules_are_the_ports_own(rel):
-    """The multi-device modules are the port's own code, not copies: they
+    """The multi-device and dry-run modules are the port's own code, not copies: they
     are among the modules imported without JAX above, import no jax and no
     repro, and are not in COPIED (the drift guard)."""
     module = "repro_torch." + rel.removesuffix(".py").replace("/", ".")
