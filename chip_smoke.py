@@ -132,6 +132,20 @@ Phases, one line of output each (or more):
      pass at K = 12, 96, 768 and 3072 candidates: ``admit_beam`` on the
      card (host wall, and device time and launches from torch.profiler),
      ``_admit_numpy`` on the host and ``score_beam`` per call;
+  S. the port's static checker (src/repro_torch/staticcheck.py) held
+     against the card: ``staticcheck.main(["--strict"])`` must return 0
+     (files checked, findings, baselined sites and the C2 reach printed);
+     every call the checker's C2 finds free of host syncs is run under
+     ``torch.cuda.set_sync_debug_mode("error")``, where any sync raises and
+     fails the run: in phase 3, after each served setup's profiles, one
+     batched decode step and one 19-token prefill as ``_profile_steps``
+     makes them (qwen2-7b, sharded x4 with a bf16 and an int8 cache,
+     mamba2-2.7b, zamba2-1.2b, qwen3-moe-30b-a3b, musicgen-medium); in
+     phase T one more musicgen-medium train_step; here one score_beam on
+     the card at K = 96. The control: one forced-device admit_beam pass on
+     the same tables under ``"warn"`` must raise sync warnings, each at the
+     line of core/admission.py the checker's baseline names, one per
+     iteration (picks with demand + 1);
   D. multi-device over torch.distributed (``launch.dist.spawn``): ranks
      that share the card, every one on cuda:0, their collectives over gloo
      (the card's name and power limit first; one JSON line per check,
@@ -180,6 +194,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -625,6 +640,36 @@ def _profile(label, run, calls, named, weight_bytes):
           f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
 
 
+SYNC_CHECKED = []  # phase S: (label, seconds) of each call run under sync debug mode "error"
+
+
+def under_sync_mode(mode, fn):
+    """fn() under torch.cuda.set_sync_debug_mode(mode), the mode reset to 0
+    after, and the sync warnings it raised: (result, warnings). Under
+    "error" a sync raises instead, and is not caught."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, [w for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def sync_checked(label, fn):
+    """Phase S: fn() under set_sync_debug_mode("error"), recorded and printed."""
+    t0 = time.time()
+    out, syncs = under_sync_mode("error", fn)
+    assert not syncs, [str(w.message) for w in syncs]
+    SYNC_CHECKED.append((label, time.time() - t0))
+    print(f"phase S {label} under set_sync_debug_mode('error'): no sync "
+          f"({SYNC_CHECKED[-1][1]:.3f} s)", flush=True)
+    return out
+
+
 def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, calls=3):
     """Profile a batched decode step (all slots active) and, unless
     ``prefill_kernels`` is None, the prefill of a 19-token prompt, the
@@ -652,6 +697,13 @@ def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, ca
     if prefill_kernels is not None:
         _profile(f"{label} prefill of {prompt.shape[1]} tokens", prefill, calls,
                  prefill_kernels, weight_bytes)
+    # phase S: the same calls once each, where no sync may happen
+    sync_checked(f"{label} decode_step at batch {engine.max_batch}",
+                 lambda: M.decode_step(params, cfg, engine.cache, tokens, active=active,
+                                       mesh_info=engine.mesh_info))
+    sync_checked(f"{label} prefill of {prompt.shape[1]} tokens",
+                 lambda: M.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len,
+                                   mesh_info=engine.mesh_info))
 
 
 def _tensors(tree):
@@ -1282,6 +1334,9 @@ def training_phase(counters=None, launches=None, steps=5, seq_len=128, batch=4, 
           f"{loss_c!r}, grad_norm {n_c!r}; per leaf {json.dumps(agree_c)}; outside TRAIN_BOUND: "
           f"{json.dumps(misses)}", flush=True)
     assert misses, "a backward without delta passed TRAIN_BOUND"
+    # phase S: one more step, where no sync may happen
+    sync_checked(f"{arch} train_step ({batch} x {seq_len})", lambda: steps_mod.train_step(
+        params, opt_state, tbatch[0], cfg=cfg, opt_cfg=oc))
     del params, opt_state, g_k, g_r, g_c
     torch.cuda.empty_cache()
 
@@ -1718,6 +1773,73 @@ def runtime_phase(device="cuda"):
 
     admission_times(pe20, box, device)
     print(f"phase R: {time.time() - t0:.1f} s", flush=True)
+
+
+def sync_phase(k=96):
+    """Phase S's own part (its decode, prefill and train calls ran in phases
+    3 and T): the port's checker, one score_beam on the card under
+    set_sync_debug_mode("error"), and the control, one forced-device
+    admit_beam pass on the same tables under "warn", whose sync warnings
+    must all sit at the line of the site the checker baselines."""
+    import tempfile
+
+    from repro_torch import staticcheck
+    from repro_torch.core import admission, scoring
+    from repro_torch.core.events import ResourceVector
+    from repro_torch.core.interference import Machine
+    from repro_torch.core.patterns import PatternEngine
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.workload import WorkloadConfig, episodes_to_traces, make_episodes
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "staticcheck.json")
+        rc = staticcheck.main(["--strict", "--json", path])
+        with open(path) as fh:
+            rep = json.load(fh)
+    meta, base = rep["meta"], rep["meta"].get("baselined", [])
+    print(f"phase S staticcheck --strict: rc {rc}, {meta['files_checked']} files checked, "
+          f"{len(rep['findings'])} findings, {meta['functions_reached']} functions reached from "
+          f"{len(staticcheck.CAPTURE_SCOPES)} capture scopes, baselined "
+          f"{[(b['rule'], b['site']) for b in base]}", flush=True)
+    assert rc == 0 and not rep["findings"], rep["findings"]
+    synced = [b for b in base if b["rule"] == "C2-sync"]
+    assert [b["site"] for b in synced] == ["core/admission.py:admit_beam"], synced
+    line = int(synced[0]["detail"].split(":")[0].split()[1])        # "line N: ..."
+
+    pe = PatternEngine(context_len=2, min_support=3).fit(
+        episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=20))))
+    box = Machine(ResourceVector(cpu=24, mem_bw=200, io=1000, accel=8))
+    cap = box.cap_array()
+    auth = 0.25 * cap
+    slack, budget = cap - auth, RuntimeConfig().budget.as_array()
+    sc = scoring.Scorer(box, k_max=12, n_max=12, device="cuda")
+    hyps, _ = _admission_pool(pe, k)
+    pb = scoring.pack_beam(hyps, admission.bucket_k(k, sc.k_max), sc.n_max)
+    tab = scoring.device_tables(pb, "cuda", w=np.ones(pb.q.shape[0]),
+                                memo_mask=np.zeros_like(pb.node_lat), auth_rho=auth, cap=cap,
+                                limit=np.minimum(slack, budget), lam=sc.lam, mu=sc.mu,
+                                idle_window=8.0, model_delay=0.0,
+                                spec_cost=np.zeros(pb.q.shape[0]), shed_penalty=0.0)
+    stab = {k2: v for k2, v in tab.items() if k2 not in ("w", "limit", "auth_rho")}
+    stab["admitted_rho"] = tab["auth_rho"]
+    scoring.score_beam(**stab, n_nodes=sc.n_max)                    # warm-up
+    sync_checked(f"score_beam at K={k}", lambda: scoring.score_beam(**stab, n_nodes=sc.n_max))
+    admission.admit_beam(**tab, n_nodes=sc.n_max)                   # warm-up
+    (admitted, _, _), syncs = under_sync_mode(
+        "warn", lambda: admission.admit_beam(**tab, n_nodes=sc.n_max))
+    costly = int(((admitted > 0) & (tab["rho"] != 0).any(dim=1)).sum())
+    at = sorted({(os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__))),
+                  w.lineno) for w in syncs})
+    print(f"phase S control: admit_beam at K={k} on the card under set_sync_debug_mode('warn'): "
+          f"{len(syncs)} sync warnings at {at}; picks with demand {costly} (+ 1: the loop's "
+          f"iterations); the checker's baseline names line {line}", flush=True)
+    assert syncs, "the forced-device admission pass raised no sync warning"
+    assert all(w.filename.endswith(os.path.join("core", "admission.py")) and w.lineno == line
+               for w in syncs), at
+    assert len(syncs) == costly + 1, (len(syncs), costly)
+    print(f"phase S: {len(SYNC_CHECKED)} calls under set_sync_debug_mode('error') without a "
+          f"sync: {json.dumps(SYNC_CHECKED)}; this part {time.time() - t0:.1f} s", flush=True)
 
 
 # ---- phase D: multi-device over torch.distributed, ranks that share the card ----
@@ -2506,6 +2628,14 @@ def main():
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     runtime_phase("cuda")
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    assert not any(counts.values()), counts
+
+    # ---- phase S: the static checker held against the card; its decode,
+    # prefill and train calls ran in phases 3 and T; it launches none of the kernels ----
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    sync_phase()
     counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     assert not any(counts.values()), counts
 

@@ -130,11 +130,12 @@ def test_port_uses_no_library_attention_or_jax(banned):
 
 @pytest.mark.parametrize("rel", ["launch/dist.py", "launch/shardings.py",
                                  "training/compression.py", "launch/dryrun.py",
-                                 "launch/input_specs.py", "launch/mesh.py"])
+                                 "launch/input_specs.py", "launch/mesh.py",
+                                 "staticcheck.py"])
 def test_multi_device_modules_are_the_ports_own(rel):
-    """The multi-device and dry-run modules are the port's own code, not copies: they
-    are among the modules imported without JAX above, import no jax and no
-    repro, and are not in COPIED (the drift guard)."""
+    """The multi-device and dry-run modules and the static checker are the port's own
+    code, not copies: they are among the modules imported without JAX above, import
+    no jax and no repro, and are not in COPIED (the drift guard)."""
     module = "repro_torch." + rel.removesuffix(".py").replace("/", ".")
     assert module in _port_modules() and rel not in COPIED
     text = (PORT / rel).read_text()
