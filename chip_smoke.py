@@ -3,7 +3,9 @@
 
   python3 chip_smoke.py
 
-Phases, one line of output each (or more):
+Phases, one line of output each (or more), and after each phase a line
+``clock <phase>: <s> s since the run began`` (the wall clock since the
+script started), so that a reader sees which phase grew:
   1. the card's name and power limit (nvidia-smi), then the build of the
      hand-written CUDA kernels from src/repro_torch/kernels/csrc, with
      ptxas's registers, spills and shared memory per kernel instantiation
@@ -46,9 +48,9 @@ Phases, one line of output each (or more):
      beside its bound, the plain backward and, for reference only, autograd
      over ssd_scan_plain;
   3. each serving path at full width (bf16, random weights from a seed)
-     through the speculative agent loop (2 episodes; 3 until phase D came,
-     the cut that keeps the whole run inside its time), speculation off then
-     on, with the
+     through the speculative agent loop (1 episode; 3 until phase D came
+     and 2 until the int8 hybrid came, the cuts that keep the whole run
+     inside its time), speculation off then on, with the
      kernels' launch counts over that run and the profiles of a batched
      decode step and of a 19-token prefill: qwen2-7b (28 layers; flash and
      decode attention); qwen2-7b sequence-sharded over a local mesh of 4
@@ -58,7 +60,10 @@ Phases, one line of output each (or more):
      every prefill); then zamba2-1.2b (38 Mamba2 layers and 6 applications
      of one shared attention block of head_dim 64: the SSD scan in every
      layer of a prefill, flash and decode attention in every application);
-     then qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 61 GB: the MoE
+     the same zamba2-1.2b weights with an int8 KV cache (the same launches;
+     the cache's values int8), with the int8-vs-bf16 log-softmax gap of a
+     teacher-forced decode and both caches' bytes printed; then
+     qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 61 GB: the MoE
      path; with the share of routed slots that drop per decode step
      and the peak device memory); then musicgen-medium (48 layers, head_dim
      64);
@@ -73,6 +78,9 @@ Phases, one line of output each (or more):
      the full forward under the window mask on log-softmax (bound: 1.5
      times a full cache's decode against its own forward; the rows laid out
      unrotated, as the JAX package's prefill leaves them, must exceed it);
+     with the zamba2-1.2b weights, the int8 engine's check, then sharded
+     engines against unsharded ones as for qwen2-7b (the partials kernel 6
+     x 4 launches a step of each sharded engine);
      qwen3-moe-30b-a3b's check runs at capacity factor E / k, where no slot
      drops (the batched step routes 4 tokens, the standalone decode 1);
      after musicgen-medium, a prefill from frontend embeddings against the
@@ -140,7 +148,8 @@ Phases, one line of output each (or more):
      fails the run: in phase 3, after each served setup's profiles, one
      batched decode step and one 19-token prefill as ``_profile_steps``
      makes them (qwen2-7b, sharded x4 with a bf16 and an int8 cache,
-     mamba2-2.7b, zamba2-1.2b, qwen3-moe-30b-a3b, musicgen-medium); in
+     mamba2-2.7b, zamba2-1.2b with a bf16 and an int8 cache,
+     qwen3-moe-30b-a3b, musicgen-medium); in
      phase T one more musicgen-medium train_step; here one score_beam on
      the card at K = 96. The control: one forced-device admit_beam pass on
      the same tables under ``"warn"`` must raise sync warnings, each at the
@@ -180,8 +189,9 @@ Phases, one line of output each (or more):
   5. one JSON line on the kernels, six of them (the backward kernels with
      phase T's launches, the forward kernels with their training launches
      beside the serving counts, every kernel with phase D's launches summed
-     over the ranks as ``dist_launches``); last, one JSON line on the
-     device.
+     over the ranks as ``dist_launches``, and the forward kernels with the
+     served int8 zamba2-1.2b run's as ``int8_hybrid_launches``, unsharded,
+     so no partials); last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -641,6 +651,12 @@ def _profile(label, run, calls, named, weight_bytes):
 
 
 SYNC_CHECKED = []  # phase S: (label, seconds) of each call run under sync debug mode "error"
+RUN_T0 = time.time()  # the run's start, for the clock line after each phase
+
+
+def clock(phase):
+    """The line that closes a phase: wall seconds since the run began."""
+    print(f"clock {phase}: {time.time() - RUN_T0:.1f} s since the run began", flush=True)
 
 
 def under_sync_mode(mode, fn):
@@ -834,7 +850,8 @@ def check_rolling(M, cfg, params, window=64, prompt=range(5, 105), steps=6):
     assert min(errs["rolling, rows unrotated"]) > bound, errs
 
 
-def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
+def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, counters, attn_layers,
+                          steps=6):
     """Phase 4: sharded engines against unsharded ones, int8 and bf16
     caches, the same requests and tokens, on log-softmax of every active
     slot. The prompts (61 and 120 tokens) put keys in the first three of
@@ -845,7 +862,9 @@ def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
     2e-2 of tests/test_perf_features.py::test_sharded_decode_multidevice
     (a reduced model) holds for no two paths here; the CPU tests hold the
     sharded path to it at reduced size. A dropped or misplaced shard moves
-    the log-softmax by far more."""
+    the log-softmax by far more. Each sharded engine's steps must launch
+    the partials kernel ``attn_layers`` x shards times a step, the others
+    never (``counters``: name -> (module, attribute))."""
     int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     configs = {"int8": (int8, None),
                "int8 sharded": (dataclasses.replace(int8, sharded_decode_attn=True), mesh_info),
@@ -863,11 +882,15 @@ def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
     tokens = torch.as_tensor(engines["bf16"].pending_tokens, dtype=torch.int64).cuda()
     active = torch.tensor([True, True, False, False], device="cuda")
     errs = {name: [] for name in pairs}
+    module, attr = counters["decode_attention_partials"]
+    partials = dict.fromkeys(engines, 0)
     for _ in range(steps):
         lsm = {}
         for name, eng in engines.items():
+            before = getattr(module, attr)
             lg, eng.cache = M.decode_step(params, eng.cfg, eng.cache, tokens, active=active,
                                           mesh_info=eng.mesh_info)
+            partials[name] += getattr(module, attr) - before
             lsm[name] = torch.log_softmax(lg[:2, :cfg.vocab_size], dim=-1)
         for name, (a, b) in pairs.items():
             errs[name].append((lsm[a] - lsm[b]).abs().max().item())
@@ -875,9 +898,41 @@ def check_sharded_engines(M, ServingEngine, cfg, params, mesh_info, steps=6):
     assert engines["int8 sharded"].cache["k"][0].dtype == torch.int8
     floor = max(errs["kernel vs oracle, unsharded"])
     print(f"phase 4 {cfg.name} max |log-softmax difference| over 2 slots per step (bound: "
-          f"the kernel-vs-oracle maximum {floor:.4f}): {json.dumps(errs)}", flush=True)
+          f"the kernel-vs-oracle maximum {floor:.4f}): {json.dumps(errs)}; partials launches "
+          f"over {steps} steps: {json.dumps(partials)}", flush=True)
     assert max(errs["int8 sharded vs unsharded"]) <= floor, errs
     assert max(errs["bf16 sharded vs unsharded"]) <= floor, errs
+    per_engine = attn_layers * mesh_info.n_model * steps
+    assert partials["int8 sharded"] == partials["bf16 sharded"] == per_engine, partials
+    assert partials["int8"] == partials["bf16"] == partials["oracle"] == 0, partials
+
+
+def _cache_bytes(cache):
+    """(K/V bytes, all bytes) of a cache."""
+    kv = _nbytes(*_tensors([cache["k"], cache["v"]]))
+    return kv, _nbytes(*_tensors(cache))
+
+
+def int8_gap(M, cfg, params, prompt=range(5, 105), steps=6):
+    """max |log-softmax difference| of an int8 cache against a bf16 one on
+    the same tokens: a prefill of ``prompt``, then ``steps`` greedy decode
+    steps of the bf16 cache, the int8 cache teacher-forced with its tokens."""
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    toks = torch.tensor([list(prompt)], device="cuda")
+    lg, cache = M.prefill(params, cfg, {"tokens": toks}, max_len=192)
+    lg8, cache8 = M.prefill(params, int8, {"tokens": toks}, max_len=192)
+
+    def gap():
+        return (torch.log_softmax(lg[:, :cfg.vocab_size], -1)
+                - torch.log_softmax(lg8[:, :cfg.vocab_size], -1)).abs().max().item()
+
+    gaps = [gap()]
+    for _ in range(steps):
+        tok = torch.argmax(lg, -1)
+        lg, cache = M.decode_step(params, cfg, cache, tok)
+        lg8, cache8 = M.decode_step(params, int8, cache8, tok)
+        gaps.append(gap())
+    return gaps
 
 
 def record_moe_drops(moe_mod):
@@ -2307,6 +2362,7 @@ def main():
     t0 = time.time()
     logs = _build.build()
     print(f"phase 1 build: {time.time() - t0:.1f} s for {list(_build.SOURCES)}", flush=True)
+    clock("1 build")
     for name, log in logs.items():
         report = _build.ptxas_report(log)
         print(f"phase 1 {name} ptxas: {json.dumps(report)}", flush=True)
@@ -2453,13 +2509,15 @@ def main():
     for name, cs in cases.items():
         for c in cs:
             print(f"phase 2 {name} {json.dumps(c)}", flush=True)
+    clock("2")
 
     # ---- phases 3-4: each serving path at full width ----------------------
     pe = PatternEngine(context_len=2, min_support=3).fit(
         episodes_to_traces(make_episodes(WorkloadConfig(seed=1, n_episodes=40))))
-    # 2 episodes of the agent loop per model (3 until phase D was added: the
-    # cut that keeps the whole run near 1000 of its 1200 s)
-    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=2))
+    # 1 episode of the agent loop per model (3 until phase D was added, 2
+    # until the int8 hybrid was: the cuts that keep the whole run inside its
+    # 1200 s)
+    episodes = make_episodes(WorkloadConfig(seed=9, n_episodes=1))
     counters = kernel_counters()
     launches = {}
 
@@ -2515,9 +2573,10 @@ def main():
             # a 100-token prompt: the slot's keys span the first three shards
             check_model(M, cfg, params, engine, label, need=6, prompt=range(5, 105))
         del engine
-    check_sharded_engines(M, ServingEngine, cfg, params, mi)
+    check_sharded_engines(M, ServingEngine, cfg, params, mi, counters, cfg.n_layers)
     del params
     torch.cuda.empty_cache()
+    clock(f"3-4 {cfg.name}")
 
     cfg = get_config("mamba2-2.7b")
     params = init_model(M, cfg)
@@ -2532,22 +2591,39 @@ def main():
     check_model(M, cfg, params, engine, cfg.name)
     del engine, params
     torch.cuda.empty_cache()
+    clock(f"3-4 {cfg.name}")
 
     # the hybrid: 38 Mamba2 layers, one shared attention block (head_dim 64)
     # applied after every 6th, fresh K/V each time
     cfg = get_config("zamba2-1.2b")
     params = init_model(M, cfg)
-    engine, counts, prefills, engine_steps = serve_model(
-        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     groups = M.hybrid_split(cfg)[0]
-    assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
-    assert counts["flash_attention"] == groups * prefills > 0, counts
-    assert counts["decode_attention"] == groups * engine_steps > 0, counts
-    assert counts["decode_attention_partials"] == 0, counts
-    _profile_steps(M, params, engine, cfg.name, decode_k, ssd_k + flash_k)
-    check_model(M, cfg, params, engine, cfg.name)
-    del engine, params
+    # with a bf16 KV cache, then the same weights with an int8 one
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    for cfg_kv, label in ((cfg, cfg.name), (int8, f"{cfg.name} int8 cache")):
+        engine, counts, prefills, engine_steps = serve_model(
+            M, ServingEngine, serve_agent_loop, cfg_kv, params, pe, episodes, counters, label)
+        assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
+        assert counts["flash_attention"] == groups * prefills > 0, counts
+        assert counts["decode_attention"] == groups * engine_steps > 0, counts
+        assert counts["decode_attention_partials"] == 0, counts
+        _profile_steps(M, params, engine, label, decode_k, ssd_k + flash_k)
+        check_model(M, cfg_kv, params, engine, label)
+        clock(f"3-4 {label}")
+    launches["int8_hybrid"] = counts
+    assert engine.cache["k"][0].dtype == engine.cache["v"][0].dtype == torch.int8
+    kv8, all8 = _cache_bytes(engine.cache)
+    kv16, all16 = _cache_bytes(M.init_cache(cfg, engine.max_batch, engine.max_len))
+    del engine
+    print(f"phase 4 {int8.name} int8 cache against the bf16 cache, max |log-softmax "
+          f"difference| after a 100-token prefill and per teacher-forced step: "
+          f"{json.dumps(int8_gap(M, cfg, params))}; cache bytes at batch 4 x 192 rows, K/V "
+          f"{kv8} int8 vs {kv16} bf16 ({kv8 / kv16:.4f}), all leaves {all8} vs {all16}",
+          flush=True)
+    check_sharded_engines(M, ServingEngine, cfg, params, mi, counters, groups)
+    del params
     torch.cuda.empty_cache()
+    clock(f"3-4 {cfg.name} int8 checks")
 
     # the MoE family at full width (48 layers, 128 experts
     # top-8, 61 GB in bf16), alone on the card
@@ -2580,6 +2656,7 @@ def main():
     check_model(M, free, params, engine, f"{cfg.name} capacity factor {free.moe.capacity_factor}")
     del engine, params
     torch.cuda.empty_cache()
+    clock(f"3-4 {cfg.name}")
 
     # the audio backbone (48 layers, 24 heads of head_dim 64), served from
     # token ids, and one prefill from frontend embeddings
@@ -2595,6 +2672,7 @@ def main():
     check_embeds(M, cfg, params)
     del engine, params
     torch.cuda.empty_cache()
+    clock(f"3-4 {cfg.name}")
 
     # the serving CLI on its default device, every arch reduced
     from repro_torch.configs import ARCHS
@@ -2611,11 +2689,13 @@ def main():
             assert counts["ssd_scan"] > 0, counts
         if arch_cfg.family != "ssm":
             assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
+    clock("4 serve CLI")
 
     # ---- phase T: training at full width (musicgen-medium, mamba2-2.7b,
     # zamba2-1.2b), then reduced ----
     readings = {}
     training_phase(counters, launches, readings=readings)
+    clock("T")
 
     # ---- phase X: the dry-run; it launches none of the kernels ----------
     for mod, attr in counters.values():
@@ -2623,6 +2703,7 @@ def main():
     dryrun_phase(readings)
     counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     assert not any(counts.values()), counts
+    clock("X")
 
     # ---- phase R: the B-PASTE runtime; it launches none of the kernels ----
     for mod, attr in counters.values():
@@ -2630,6 +2711,7 @@ def main():
     runtime_phase("cuda")
     counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     assert not any(counts.values()), counts
+    clock("R")
 
     # ---- phase S: the static checker held against the card; its decode,
     # prefill and train calls ran in phases 3 and T; it launches none of the kernels ----
@@ -2638,12 +2720,14 @@ def main():
     sync_phase()
     counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     assert not any(counts.values()), counts
+    clock("S")
 
     # ---- phase D: multi-device over torch.distributed, ranks sharing the card
     t0 = time.time()
     dist_launches = distributed_phase()
     print(f"phase D: {time.time() - t0:.1f} s; launches on its paths, summed over the ranks: "
           f"{json.dumps(dist_launches)}", flush=True)
+    clock("D")
 
     # ---- phase 5: the kernels line; then the device line -----------------
     replaces = {
@@ -2688,6 +2772,9 @@ def main():
     kernels[3]["training_launches"] = launches["ssd_scan_train"]
     for k in kernels:     # phase D's main paths, every rank's launches
         k["dist_launches"] = dist_launches[k["name"]]
+    for k in kernels[:4]:   # the forward kernels on the int8 zamba2-1.2b path
+        k["int8_hybrid_launches"] = launches["int8_hybrid"][k["name"]]
+    clock("5")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

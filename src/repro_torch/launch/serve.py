@@ -9,8 +9,9 @@ default, granite-8b, deepseek-7b, mistral-nemo-12b), the MoE family
 (internvl2-76b, musicgen-medium; the loop feeds them token ids), the Mamba2
 family (mamba2-2.7b) and the hybrid family (zamba2-1.2b: Mamba2 layers and
 a shared attention block), unchanged: the engine copies whichever cache
-leaves the model's prefill returns. Runs on the GPU unless ``--device cpu``
-is given:
+leaves the model's prefill returns. Every family with attention, the
+hybrid too, takes an int8 KV cache (``kv_cache_dtype="int8"`` in the
+config). Runs on the GPU unless ``--device cpu`` is given:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --episodes 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --episodes 3

@@ -236,15 +236,14 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int) -> Dict[str, A
     if kv_ax is None:
         seq_ax = _maybe(model_axis, smax, nm)
     specs: Dict[str, Any] = {"lengths": P(b_ax)}
-    if cfg.family in ("dense", "vlm", "audio", "moe"):
+
+    def kv(seq_ax, kv_ax):   # an int8 cache: (values, scales) pairs, laid out alike
         if cfg.kv_cache_dtype == "int8":
-            specs["k"] = (P(None, b_ax, seq_ax, kv_ax, None),
-                          P(None, b_ax, seq_ax, kv_ax))
-            specs["v"] = (P(None, b_ax, seq_ax, kv_ax, None),
-                          P(None, b_ax, seq_ax, kv_ax))
-        else:
-            specs["k"] = P(None, b_ax, seq_ax, kv_ax, None)
-            specs["v"] = P(None, b_ax, seq_ax, kv_ax, None)
+            return (P(None, b_ax, seq_ax, kv_ax, None), P(None, b_ax, seq_ax, kv_ax))
+        return P(None, b_ax, seq_ax, kv_ax, None)
+
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        specs["k"] = specs["v"] = kv(seq_ax, kv_ax)
     if cfg.family in ("ssm", "hybrid"):
         ss = cfg.ssm
         di = ss.d_inner(cfg.d_model)
@@ -260,8 +259,9 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int) -> Dict[str, A
     if cfg.family == "hybrid":
         kv_ax2 = _maybe(model_axis, KV, nm)
         seq_ax2 = None if kv_ax2 is not None else _maybe(model_axis, max_len, nm)
-        specs["k"] = P(None, b_ax, seq_ax2, kv_ax2, None)
-        specs["v"] = P(None, b_ax, seq_ax2, kv_ax2, None)
+        # pairs with an int8 cache, the layout of the hybrid prefill's cache
+        # (the JAX package gives its plain cfg.dtype cache's spec)
+        specs["k"] = specs["v"] = kv(seq_ax2, kv_ax2)
     return specs
 
 

@@ -2,9 +2,8 @@
 
 Ported: every family of the JAX package: dense, MoE, SSM (Mamba2), hybrid
 (zamba2: Mamba2 + shared attention), and the vlm and audio backbones with
-their embedding frontends, with or without head padding, on one device or
-over a mesh. One variant raises NotImplementedError: a hybrid with an int8
-KV cache.
+their embedding frontends, with or without head padding, with a bf16 or an
+int8 KV cache, on one device or over a mesh.
 
 Design notes
 ------------
@@ -30,7 +29,9 @@ Design notes
   KV)``), ``ssm_state`` = (conv_x, conv_B, conv_C, ssm) stacked on a
   leading L axis for the SSM family, both for the hybrid family (its
   ``k``/``v`` are ``(G, B, max_len, KV, hd)``, one per application of the
-  shared block), plus ``lengths`` (B,) int32.
+  shared block; with an int8 cache, pairs on the same G axis, the layout
+  the JAX package's hybrid prefill returns, where its ``init_cache``
+  allocates plain ``cfg.dtype`` arrays), plus ``lengths`` (B,) int32.
   :func:`decode_step` updates them in place.
 * **meshes**: :class:`MeshContext` describes a mesh (:func:`mesh_context`).
   Over a ``launch.mesh.LocalMesh`` (shards held by this process on one
@@ -98,10 +99,6 @@ _F32_PARAMS = ssm_mod.F32_PARAMS + moe_mod.F32_PARAMS
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.family == "hybrid" and cfg.kv_cache_dtype == "int8":
-        # the JAX package's hybrid cache holds K/V in cfg.dtype while its
-        # prefill returns int8 (values, scales) pairs: no engine can hold both
-        raise NotImplementedError("an int8 KV cache is not ported for the hybrid family")
 
 
 def hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -347,26 +344,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
     _check_family(cfg)
     lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
     KV, hd = cfg.eff_n_kv_heads, cfg.resolved_head_dim
+
+    def leaf(n, smax):
+        shape = (n, batch, len(range(smax)[_seq_rows(cfg, mesh_info, smax)]), KV, hd)
+        if cfg.kv_cache_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=_dtype(cfg), device=device)
+
     if cfg.family in ("ssm", "hybrid"):
         st = ssm_mod.init_ssm_state(cfg, batch, _dtype(cfg), device)
         cache = {"lengths": lengths,
                  "ssm_state": tuple(a.expand(cfg.n_layers, *a.shape).clone() for a in st)}
         if cfg.family == "hybrid":   # max_len rows, as in the JAX package, window or not
             g = hybrid_split(cfg)[0]
-            rows = len(range(max_len)[_seq_rows(cfg, mesh_info, max_len)])
-            cache["k"], cache["v"] = (torch.zeros((g, batch, rows, KV, hd), dtype=_dtype(cfg),
-                                                  device=device) for _ in range(2))
+            cache["k"], cache["v"] = leaf(g, max_len), leaf(g, max_len)
         return cache
     smax = _kv_smax(cfg, max_len)
-    shape = (cfg.n_layers, batch, len(range(smax)[_seq_rows(cfg, mesh_info, smax)]), KV, hd)
-
-    def leaf():
-        if cfg.kv_cache_dtype == "int8":
-            return (torch.zeros(shape, dtype=torch.int8, device=device),
-                    torch.zeros(shape[:-1], dtype=torch.float32, device=device))
-        return torch.zeros(shape, dtype=_dtype(cfg), device=device)
-
-    return {"lengths": lengths, "k": leaf(), "v": leaf()}
+    return {"lengths": lengths, "k": leaf(cfg.n_layers, smax), "v": leaf(cfg.n_layers, smax)}
 
 
 def _dtensor_cache(cfg: ModelConfig, batch: int, max_len: int, mesh_info: MeshContext):
@@ -380,9 +375,30 @@ def _dtensor_cache(cfg: ModelConfig, batch: int, max_len: int, mesh_info: MeshCo
                                      shardings.cache_specs(cfg, mesh, batch, max_len), mesh)
 
 
+def _empty_cache(cfg: ModelConfig, h: torch.Tensor, max_len: int,
+                 mesh_info: Optional[MeshContext]) -> Dict[str, Any]:
+    """The cache a prefill of ``h`` (B, S, D) fills: meta DTensors laid out
+    on the mesh (:func:`_dtensor_cache`) for a DTensor ``h``, else
+    :func:`init_cache` on ``h``'s device."""
+    if isinstance(h, DTensor):
+        return _dtensor_cache(cfg, h.shape[0], max_len, mesh_info)
+    return init_cache(cfg, h.shape[0], max_len, device=h.device, mesh_info=mesh_info)
+
+
 def _layer(leaf, i: int):
-    """Layer i of a K or V cache leaf: a tensor, or an int8 (values, scales) pair."""
+    """Layer (or group) i of a K or V cache leaf: a tensor, or an int8
+    (values, scales) pair."""
     return tuple(a[i] for a in leaf) if isinstance(leaf, tuple) else leaf[i]
+
+
+def _fill(leaf, i: int, new, rows: slice) -> None:
+    """Write ``new``'s ``rows`` (attn_prefill's (B, smax, ...) K or V) into
+    layer (or group) i of a cache leaf: a tensor, or an int8 pair."""
+    if isinstance(leaf, tuple):
+        for dst, src in zip(leaf, new, strict=True):
+            dst[i] = src[:, rows]
+    else:
+        leaf[i] = new[:, rows]
 
 
 def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len: int,
@@ -396,41 +412,35 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
     h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
     if cfg.family in ("ssm", "hybrid"):
-        states, kv = [], []
+        # a hybrid's K/V of max_len rows, as the JAX package's prefill has
+        cache = _empty_cache(cfg, h, max_len, mesh_info) if cfg.family == "hybrid" else {}
+        rows = _seq_rows(cfg, mesh_info, max_len)
+        states = []
         for i, blk in enumerate(params["blocks"]):
             x = rms_norm(h, blk["ln"], cfg.norm_eps)
             o, st = ssm_mod.ssm_forward(blk["ssm"], x, cfg, impl=impl, return_state=True)
             h = h + o
             states.append(st)
-            if _shared_attn_index(cfg, i) is not None:
+            gi = _shared_attn_index(cfg, i)
+            if gi is not None:
                 shared = params["shared_attn"]
                 x = rms_norm(h, shared["ln"], cfg.norm_eps)
-                # a cache of max_len rows, as the JAX package's hybrid prefill has
                 o, kc, vc = attn_mod.attn_prefill(shared["attn"], x, cfg, max_len, impl=impl)
                 h = h + o
-                rows = _seq_rows(cfg, mesh_info, max_len)
-                kv.append((kc[:, rows], vc[:, rows]))
-        cache = {"lengths": torch.full((b,), s, dtype=torch.int32, device=h.device),
-                 "ssm_state": tuple(torch.stack(leaf) for leaf in zip(*states))}
-        if cfg.family == "hybrid":
-            cache["k"], cache["v"] = (torch.stack(t) for t in zip(*kv, strict=True))
+                _fill(cache["k"], gi, kc, rows)
+                _fill(cache["v"], gi, vc, rows)
+        cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=h.device)
+        cache["ssm_state"] = tuple(torch.stack(leaf) for leaf in zip(*states))
         return lm_logits(params, cfg, h[:, -1]), cache
-    if isinstance(h, DTensor):
-        cache = _dtensor_cache(cfg, b, max_len, mesh_info)
-    else:
-        cache = init_cache(cfg, b, max_len, device=h.device, mesh_info=mesh_info)
+    cache = _empty_cache(cfg, h, max_len, mesh_info)
     cache["lengths"].fill_(s)
     smax = _kv_smax(cfg, max_len)
     rows = _seq_rows(cfg, mesh_info, smax)
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)
         o, kc, vc = attn_mod.attn_prefill(blk["attn"], x, cfg, smax, impl=impl)
-        for big, small in ((cache["k"], kc), (cache["v"], vc)):
-            if isinstance(big, tuple):      # int8 values and scales
-                for dst, src in zip(big, small, strict=True):
-                    dst[i] = src[:, rows]
-            else:
-                big[i] = small[:, rows]
+        _fill(cache["k"], i, kc, rows)
+        _fill(cache["v"], i, vc, rows)
         h = h + o
         h = h + _ffn(blk, h, cfg, mesh_info)[0]
     return lm_logits(params, cfg, h[:, -1]), cache
@@ -468,8 +478,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
             if gi is not None:
                 shared = params["shared_attn"]
                 h = h + attn_mod.attn_decode_dispatch(
-                    shared["attn"], rms_norm(h, shared["ln"], cfg.norm_eps), cache["k"][gi],
-                    cache["v"][gi], lengths, cfg, mesh_info, impl=impl, active=active)
+                    shared["attn"], rms_norm(h, shared["ln"], cfg.norm_eps),
+                    _layer(cache["k"], gi), _layer(cache["v"], gi), lengths, cfg, mesh_info,
+                    impl=impl, active=active)
         return lm_logits(params, cfg, h[:, 0]), dict(cache, lengths=lengths + step)
     for i, blk in enumerate(params["blocks"]):
         x = rms_norm(h, blk["ln1"], cfg.norm_eps)

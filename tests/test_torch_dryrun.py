@@ -227,3 +227,28 @@ def test_cli_runs_a_full_width_cell(tmp_path):
         assert key in rec
     args = rec["memory_analysis"]["argument_bytes"]
     assert args == rec["param_bytes_per_device"] + rec["cache_bytes_per_device"] + 128 // 16 * 4
+
+
+def test_cli_runs_the_int8_hybrid_cell(tmp_path):
+    """``--kv-int8`` on zamba2-1.2b decode_32k: an ok record whose cache
+    bytes a device are the hybrid prefill's int8 layout, (values int8, scales
+    f32) pairs of K and V over its 6 groups, batch-sharded 16 ways over
+    `data` and kv-head-sharded 16 ways over `model`, plus the 38 layers'
+    SSM states (heads and d_inner over `model`) and the lengths."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                        "zamba2-1.2b", "--shape", "decode_32k", "--mesh", "single",
+                        "--kv-int8", "--out-dir", str(tmp_path)], capture_output=True,
+                       text=True, env=env, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    rec = json.loads((tmp_path / "zamba2-1.2b__decode_32k__single.json").read_text())
+    assert rec["status"] == "ok", rec.get("error")
+    cfg = get_config("zamba2-1.2b")
+    g, b, s = M.hybrid_split(cfg)[0], 128 // 16, 32768
+    kv, hd = cfg.n_kv_heads // 16, cfg.resolved_head_dim
+    pairs = 2 * g * b * s * kv * (hd + 4)     # K and V: hd int8 values and an f32 scale each
+    ss = cfg.ssm
+    di, gn, nh = ss.d_inner(cfg.d_model), ss.n_groups * ss.d_state, ss.n_heads(cfg.d_model)
+    conv = cfg.n_layers * b * (ss.d_conv - 1) * (di // 16 + 2 * gn) * 2      # bf16
+    state = cfg.n_layers * b * (nh // 16) * ss.head_dim * ss.d_state * 4   # f32
+    assert rec["cache_bytes_per_device"] == pairs + conv + state + b * 4

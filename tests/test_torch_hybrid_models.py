@@ -224,13 +224,3 @@ def test_init_cache_layout():
             assert cache[name].shape == (g, 3, 64, cfg.n_kv_heads, cfg.resolved_head_dim)
             assert cache[name].dtype == torch.bfloat16
         assert cache["lengths"].dtype == torch.int32
-
-
-def test_int8_hybrid_cache_raises():
-    """The JAX package's hybrid allocates K/V in cfg.dtype but its prefill
-    returns int8 pairs; the port does not take that combination."""
-    _, cfg = _cfgs(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        M.init_cache(cfg, batch=1, max_len=16, device="cpu")

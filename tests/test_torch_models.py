@@ -144,12 +144,3 @@ def test_init_params_shapes_and_vocab_mask():
     assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
     if cfg.padded_vocab != cfg.vocab_size:
         assert (logits[..., cfg.vocab_size:] <= -1e29).all()
-
-
-@pytest.mark.parametrize("arch,kw,entry", [
-    ("zamba2-1.2b", {"kv_cache_dtype": "int8"}, "init"),  # hybrid family with an int8 KV cache
-])
-def test_unported_variants_raise(arch, kw, entry):
-    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
-    with pytest.raises(NotImplementedError):
-        M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

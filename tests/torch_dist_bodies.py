@@ -79,12 +79,13 @@ def shard_roundtrip(rank, mesh, arch):
     return {"same": same, "shapes": shapes}
 
 
-def decode(rank, mesh, np_params, cfg_kw, prompt, feed, max_len, active=None):
-    """Reduced qwen2-7b: a prefill of this rank's rows of ``prompt``, then
+def decode(rank, mesh, np_params, cfg_kw, prompt, feed, max_len, active=None,
+           arch="qwen2-7b"):
+    """Reduced ``arch``: a prefill of this rank's rows of ``prompt``, then
     one decode step per row of ``feed``, sequence-sharded over the model
     axis. Returns the rows, each step's logits of them, and this rank's
     K/V cache slices (every leaf, int8 pairs flattened)."""
-    cfg = config("qwen2-7b", sharded_decode_attn=True, **cfg_kw)
+    cfg = config(arch, sharded_decode_attn=True, **cfg_kw)
     dev = mesh.device
     params = M.params_from_numpy(np_params, cfg, device=dev)
     mi = M.mesh_context(mesh)
@@ -108,6 +109,13 @@ def decode(rank, mesh, np_params, cfg_kw, prompt, feed, max_len, active=None):
             "lengths": cache["lengths"].cpu().numpy(),
             "before": [t.cpu().numpy() for t in before], "after": [t.cpu().numpy() for t in after],
             "coords": dict(mesh.coords), "counts": dict(mesh.counts)}
+
+
+def hybrid_int8_decode(rank, mesh, np_params, prompt, feed, max_len):
+    """:func:`decode` on reduced zamba2-1.2b at 14 layers (two groups of the
+    shared attention block) with an int8 cache."""
+    return decode(rank, mesh, np_params, {"kv_cache_dtype": "int8", "n_layers": 14}, prompt,
+                  feed, max_len, arch="zamba2-1.2b")
 
 
 def serve(rank, mesh, np_params, episodes_seed):
