@@ -40,10 +40,12 @@ holding its slice of the cache, and sample the same tokens.
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.events import Event
 from repro_torch.core.hypothesis import HypothesisBuilder
@@ -86,8 +88,8 @@ def serve_agent_loop(spec_on: bool, cfg, engine_or_params, episodes, pattern_eng
                 for _ in range(3):          # tool latency window
                     eng.step()
                     decode_steps += 1
-            obs = render_observation(step.tool, {}, f"pred:{step.tool}", cfg.vocab_size)
-            got = spec.match_and_promote(obs, ep.eid) if spec_on else None
+            obs_ids = render_observation(step.tool, {}, f"pred:{step.tool}", cfg.vocab_size)
+            got = spec.match_and_promote(obs_ids, ep.eid) if spec_on else None
             if got is not None:
                 hits += 1
             history.append(Event("tool", step.tool, dict(step.args), {"ok": True}))
@@ -122,7 +124,7 @@ def main(argv=None):
     PatternEngine(context_len=2, min_support=3).fit(episodes_to_traces(train_eps))
 
     eps = make_episodes(WorkloadConfig(seed=9, n_episodes=args.episodes))
-    t0 = time.time()
+    obs.record(True)
     total_steps = 0
     for ep in eps:
         prompt = [2, 3, 4]
@@ -132,16 +134,23 @@ def main(argv=None):
             for _ in range(6):
                 engine.step()
                 total_steps += 1
-            obs = render_observation(step.tool, step.args, "auth", cfg.vocab_size)
-            spec.match_and_promote(obs, ep.eid)
+            obs_ids = render_observation(step.tool, step.args, "auth", cfg.vocab_size)
+            spec.match_and_promote(obs_ids, ep.eid)
         for s in engine.slots:
             if s.request_id == ep.eid:
                 s.active = False
                 s.request_id = None
-    dt = time.time() - t0
-    print(f"served {args.episodes} episodes, {total_steps} decode steps in {dt:.1f}s "
-          f"({total_steps/max(dt,1e-9):.1f} steps/s), "
+    obs.record(False)
+    print(f"served {args.episodes} episodes, {total_steps} decode steps; "
+          f"a step {_median_ms('serving.step')} ms of host wall, "
+          f"{_median_ms('serving.step.readback')} ms of it waiting on the tokens (medians), "
           f"promotions={spec.promotions} preemptions={spec.preemptions}")
+
+
+def _median_ms(name: str) -> str:
+    """The median host ms of the recorded spans called ``name``."""
+    ms = [(s.end_ns - s.start_ns) * 1e-6 for s in obs.spans() if s.name == name]
+    return f"{statistics.median(ms):.3f}" if ms else "-"
 
 
 if __name__ == "__main__":

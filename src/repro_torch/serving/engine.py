@@ -29,15 +29,26 @@ every rank (batch 1 is not sharded) and lands in the slot's rows only on
 the ranks that hold them; a step decodes this rank's rows and gathers the
 logits of all rows over the batch axes, so every rank samples the same
 tokens and keeps the same slots.
+
+With recording on (``repro_torch.obs``), ``add_request`` is a
+``serving.prefill`` span (slot, prompt tokens, speculative or not, and
+the slots mid-decode that it holds back, all and authoritative) and
+``step`` a ``serving.step`` span (rows decoded, the speculative ones among
+them) with two children:
+``serving.step.model``, the host enqueuing the decode (and the batch
+gather on a mesh), and ``serving.step.readback``, the host waiting for the
+sampled tokens. The rest of the step is the span's own time: the active
+mask, the two copies to the device and the slots' bookkeeping.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import on_ranks
 from repro_torch.models import model as model_mod
@@ -85,7 +96,6 @@ class ServingEngine:
         self.slots = [Slot(i) for i in range(max_batch)]
         self.pending_tokens = np.zeros((max_batch,), np.int32)
         self.steps_executed = 0
-        self.spec_steps_executed = 0
 
     # ------------------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -104,30 +114,39 @@ class ServingEngine:
         if not free:
             return None
         slot = free[0]
-        s = self.slots[slot]
-        s.request_id = request_id
-        s.speculative = speculative
-        s.eu = eu
-        s.tokens = list(prompt)
-        s.active = True
-        s.done = False
-        toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
-        logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
-                                           self.max_len, mesh_info=self.mesh_info)
-        row = slot - self.row0
-        if 0 <= row < self.rows:
-            for name, leaf in cache1.items():
-                if name == "lengths":
-                    continue
-                # every other leaf is (L, batch, ...): k/v, an int8 (values,
-                # scales) pair, or the ssm state tuple
-                pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
-                    else ((self.cache[name], leaf),)
-                for big, small in pairs:
-                    big[:, row].copy_(small[:, 0])
-            self.cache["lengths"][row] = len(prompt)
-        self.pending_tokens[slot] = int(torch.argmax(logits[0]))
+        with obs.span("serving.prefill") as sp:
+            if sp is not None:
+                sp.attrs.update(self._prefill_attrs(slot, len(prompt), speculative))
+            s = self.slots[slot]
+            s.request_id = request_id
+            s.speculative = speculative
+            s.eu = eu
+            s.tokens = list(prompt)
+            s.active = True
+            s.done = False
+            toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
+            logits, cache1 = model_mod.prefill(self.params, self.cfg, {"tokens": toks},
+                                               self.max_len, mesh_info=self.mesh_info)
+            row = slot - self.row0
+            if 0 <= row < self.rows:
+                for name, leaf in cache1.items():
+                    if name == "lengths":
+                        continue
+                    # every other leaf is (L, batch, ...): k/v, an int8 (values,
+                    # scales) pair, or the ssm state tuple
+                    pairs = zip(self.cache[name], leaf, strict=True) if isinstance(leaf, tuple) \
+                        else ((self.cache[name], leaf),)
+                    for big, small in pairs:
+                        big[:, row].copy_(small[:, 0])
+                self.cache["lengths"][row] = len(prompt)
+            self.pending_tokens[slot] = int(torch.argmax(logits[0]))
         return slot
+
+    def _prefill_attrs(self, slot: int, tokens: int, speculative: bool) -> Dict[str, Any]:
+        others = [s for s in self.slots if s.active and not s.done and s.idx != slot]
+        return {"slot": slot, "tokens": tokens,
+                "speculative": speculative, "decoding": len(others),
+                "auth_decoding": sum(1 for s in others if not s.speculative)}
 
     def preempt(self, slot: int):
         """Reclaim a speculative slot at a step boundary (drop, zero-copy)."""
@@ -146,31 +165,38 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> Dict[int, int]:
         """One batched decode step; returns {slot: new_token} for active slots."""
-        active = np.array([s.active and not s.done for s in self.slots])
-        if not active.any():
-            return {}
-        mine = slice(self.row0, self.row0 + self.rows)
-        tokens = torch.as_tensor(self.pending_tokens[mine], dtype=torch.int64).to(self.device)
-        active_t = torch.as_tensor(active[mine]).to(self.device)
-        logits, self.cache = model_mod.decode_step(self.params, self.cfg, self.cache, tokens,
-                                                   active=active_t, mesh_info=self.mesh_info)
-        if self.rows < self.max_batch:      # every row's logits, on every rank
-            logits = self.mesh_info.mesh.all_gather(logits, self.mesh_info.batch_axes)
-            logits = logits.reshape(self.max_batch, -1)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-        out: Dict[int, int] = {}
-        self.steps_executed += 1
-        self.spec_steps_executed += int(
-            sum(1 for s in self.slots if s.active and s.speculative)
-        )
-        for s in self.slots:
-            if not (s.active and not s.done):
-                continue
-            tok = int(nxt[s.idx])
-            s.tokens.append(int(self.pending_tokens[s.idx]))
-            self.pending_tokens[s.idx] = tok
-            out[s.idx] = tok
-            if tok == self.eos_id or len(s.tokens) >= self.max_len - 1:
-                s.done = True
-                s.active = False
+        with obs.span("serving.step") as sp:
+            active = np.array([s.active and not s.done for s in self.slots])
+            if sp is not None:
+                sp.attrs.update(self._step_attrs())
+            if not active.any():
+                return {}
+            mine = slice(self.row0, self.row0 + self.rows)
+            tokens = torch.as_tensor(self.pending_tokens[mine], dtype=torch.int64).to(self.device)
+            active_t = torch.as_tensor(active[mine]).to(self.device)
+            with obs.span("serving.step.model"):
+                logits, self.cache = model_mod.decode_step(self.params, self.cfg, self.cache,
+                                                           tokens, active=active_t,
+                                                           mesh_info=self.mesh_info)
+                if self.rows < self.max_batch:      # every row's logits, on every rank
+                    logits = self.mesh_info.mesh.all_gather(logits, self.mesh_info.batch_axes)
+                    logits = logits.reshape(self.max_batch, -1)
+            with obs.span("serving.step.readback"):
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            out: Dict[int, int] = {}
+            self.steps_executed += 1
+            for s in self.slots:
+                if not (s.active and not s.done):
+                    continue
+                tok = int(nxt[s.idx])
+                s.tokens.append(int(self.pending_tokens[s.idx]))
+                self.pending_tokens[s.idx] = tok
+                out[s.idx] = tok
+                if tok == self.eos_id or len(s.tokens) >= self.max_len - 1:
+                    s.done = True
+                    s.active = False
         return out
+
+    def _step_attrs(self) -> Dict[str, int]:
+        live = [s for s in self.slots if s.active and not s.done]
+        return {"rows": len(live), "spec_rows": sum(1 for s in live if s.speculative)}

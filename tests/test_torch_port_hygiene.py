@@ -131,7 +131,7 @@ def test_port_uses_no_library_attention_or_jax(banned):
 @pytest.mark.parametrize("rel", ["launch/dist.py", "launch/shardings.py",
                                  "training/compression.py", "launch/dryrun.py",
                                  "launch/input_specs.py", "launch/mesh.py",
-                                 "staticcheck.py"])
+                                 "staticcheck.py", "obs.py"])
 def test_multi_device_modules_are_the_ports_own(rel):
     """The multi-device and dry-run modules and the static checker are the port's own
     code, not copies: they are among the modules imported without JAX above, import
