@@ -50,9 +50,12 @@ script started), so that a reader sees which phase grew:
   3. each serving path at full width (bf16, random weights from a seed)
      through the speculative agent loop (1 episode; 3 until phase D came
      and 2 until the int8 hybrid came, the cuts that keep the whole run
-     inside its time), speculation off then on, with the
-     kernels' launch counts over that run and the profiles of a batched
-     decode step and of a 19-token prefill: qwen2-7b (28 layers; flash and
+     inside its time), speculation off then on, every decode step replayed
+     as the engine's CUDA graph, with the kernels' launch counts over that
+     run (the prefills'; the wrappers never see a replay's launches) and
+     the profiles of 3 served decode steps, every slot decoding, whose
+     trace must list each decode kernel's launches a step, and of a
+     19-token prefill: qwen2-7b (28 layers; flash and
      decode attention); qwen2-7b sequence-sharded over a local mesh of 4
      shards on the card, with the same weights, with a bf16 and then an
      int8 KV cache (the split-KV partials kernel in every layer of every
@@ -64,8 +67,9 @@ script started), so that a reader sees which phase grew:
      the cache's values int8), with the int8-vs-bf16 log-softmax gap of a
      teacher-forced decode and both caches' bytes printed; then
      qwen3-moe-30b-a3b (48 layers, 128 experts top-8, 61 GB: the MoE
-     path; with the share of routed slots that drop per decode step
-     and the peak device memory); then musicgen-medium (48 layers, head_dim
+     path; with the peak device memory and the share of routed slots that
+     drop per decode step, over 16 replayed steps of a fresh engine); then
+     musicgen-medium (48 layers, head_dim
      64);
   4. after each model's run, a batched engine slot against a standalone
      prefill + decode at full width, teacher-forced, and the kernel path
@@ -146,8 +150,8 @@ script started), so that a reader sees which phase grew:
      every call the checker's C2 finds free of host syncs is run under
      ``torch.cuda.set_sync_debug_mode("error")``, where any sync raises and
      fails the run: in phase 3, after each served setup's profiles, one
-     batched decode step and one 19-token prefill as ``_profile_steps``
-     makes them (qwen2-7b, sharded x4 with a bf16 and an int8 cache,
+     eager batched decode step and one 19-token prefill as
+     ``_profile_steps`` makes them (qwen2-7b, sharded x4 with a bf16 and an int8 cache,
      mamba2-2.7b, zamba2-1.2b with a bf16 and an int8 cache,
      qwen3-moe-30b-a3b, musicgen-medium); in
      phase T one more musicgen-medium train_step; here one score_beam on
@@ -191,7 +195,8 @@ script started), so that a reader sees which phase grew:
      beside the serving counts, every kernel with phase D's launches summed
      over the ranks as ``dist_launches``, and the forward kernels with the
      served int8 zamba2-1.2b run's as ``int8_hybrid_launches``, unsharded,
-     so no partials); last, one JSON line on the device.
+     so no partials; the decode kernels' serving counts are those of the
+     profiled steps' trace); last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -619,7 +624,8 @@ def _profile(label, run, calls, named, weight_bytes):
     synchronises, against the host's wall time per call, with the named
     kernels' own shares and the weight bytes a call reads (every weight but
     the embedding table, of which it reads a row per token). ``named`` is a
-    list of (name, the name of its __global__ function)."""
+    list of (name, the name of its __global__ function); returns each named
+    kernel's launches in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,10 +639,11 @@ def _profile(label, run, calls, named, weight_bytes):
     device_ms = sum(e.self_device_time_total for e in kernels) / calls / 1e3
     assert device_ms > 0, "the profiler recorded no device time"
     launches = sum(e.count for e in kernels) / calls
-    own = ""
+    own, traced = "", {}
     for name, symbol in named:
         mine = [e for e in kernels if symbol in e.key]
         assert mine, f"the trace holds no {name} kernel"
+        traced[name] = sum(e.count for e in mine)
         mine_ms = sum(e.self_device_time_total for e in mine) / calls / 1e3
         own += (f"; {name} {mine_ms:.4f} ms ({mine_ms / device_ms:.3f} of the device time) "
                 f"in {sum(e.count for e in mine) / calls:.0f} launches")
@@ -648,6 +655,7 @@ def _profile(label, run, calls, named, weight_bytes):
           f"{device_ms / wall_ms:.3f} of the wall time{own}; weights read "
           f"{weight_bytes / 1e9:.3f} GB ({weight_bytes / PEAK_BYTES * 1e3:.3f} ms at "
           f"{PEAK_BYTES / 1e12} TB/s); top kernels: {shares}", flush=True)
+    return traced
 
 
 SYNC_CHECKED = []  # phase S: (label, seconds) of each call run under sync debug mode "error"
@@ -686,21 +694,38 @@ def sync_checked(label, fn):
     return out
 
 
-def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, calls=3):
-    """Profile a batched decode step (all slots active) and, unless
+def _release(engine):
+    """Every slot of ``engine`` free again, as a caller releases one."""
+    for s in engine.slots:
+        s.active, s.request_id = False, None
+
+
+def _fill(engine, prompt_len=19):
+    """Every slot of ``engine`` released, then admitted with a prompt of its
+    own of ``prompt_len`` tokens, the length of a speculative observation."""
+    _release(engine)
+    for i in range(engine.max_batch):
+        engine.add_request(list(range(2 + i, 2 + i + prompt_len)), request_id=i)
+
+
+def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, per_step,
+                   calls=3):
+    """Profile served decode steps, ``engine.step()`` with every slot
+    decoding (on a card each replays the engine's CUDA graph) and, unless
     ``prefill_kernels`` is None, the prefill of a 19-token prompt, the
     length of a speculative observation; each list names the repository's
-    kernels the call runs (a Mamba2 decode step runs none)."""
+    kernels the call runs (a Mamba2 decode step runs none). The trace must
+    hold ``per_step[name]`` launches of each decode kernel a step, and
+    every step must replay. Returns each decode kernel's launches in the
+    trace, its slots released after."""
     cfg = engine.cfg
     weight_bytes = _nbytes(*_tensors({k: v for k, v in params.items() if k != "embed"}))
-    tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
-    active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
+    _fill(engine)
     prompt = torch.arange(2, 21, device="cuda")[None]
 
     def decode():
         for _ in range(calls):
-            M.decode_step(params, cfg, engine.cache, tokens, active=active,
-                          mesh_info=engine.mesh_info)
+            assert engine.step(), "every slot has finished"
         torch.cuda.synchronize()
 
     def prefill():
@@ -708,18 +733,25 @@ def _profile_steps(M, params, engine, label, decode_kernels, prefill_kernels, ca
             M.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len)
         torch.cuda.synchronize()
 
-    _profile(f"{label} decode step at batch {engine.max_batch}", decode, calls,
-             decode_kernels, weight_bytes)
+    replays0 = engine.graph_replays
+    traced = _profile(f"{label} decode step at batch {engine.max_batch}", decode, calls,
+                      decode_kernels, weight_bytes)
+    assert engine.graph_replays - replays0 == 3 * calls, "a served step did not replay"
+    assert traced == {name: n * calls for name, n in per_step.items()}, (traced, per_step)
     if prefill_kernels is not None:
         _profile(f"{label} prefill of {prompt.shape[1]} tokens", prefill, calls,
                  prefill_kernels, weight_bytes)
-    # phase S: the same calls once each, where no sync may happen
+    # phase S: the same calls once each, eagerly, where no sync may happen
+    tokens = torch.as_tensor(engine.pending_tokens, dtype=torch.int64).cuda()
+    active = torch.ones(engine.max_batch, dtype=torch.bool, device="cuda")
     sync_checked(f"{label} decode_step at batch {engine.max_batch}",
                  lambda: M.decode_step(params, cfg, engine.cache, tokens, active=active,
                                        mesh_info=engine.mesh_info))
     sync_checked(f"{label} prefill of {prompt.shape[1]} tokens",
                  lambda: M.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len,
                                    mesh_info=engine.mesh_info))
+    _release(engine)
+    return traced
 
 
 def _tensors(tree):
@@ -743,13 +775,15 @@ def serve_model(M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, c
                 label, mesh_info=None):
     """Phase 3 for one model: warm up, then serve the episodes with
     speculation off and on, the kernels' counts (``counters``: name ->
-    (module, attribute)) set to 0 just before and read just after."""
+    (module, attribute)) set to 0 just before and read just after. Every
+    served step must replay the engine's CUDA graph, whose kernels the
+    counters do not see: ``_profile_steps`` counts them in a trace."""
     engine = ServingEngine(cfg, params, max_batch=4, max_len=192, mesh_info=mesh_info,
                            device="cuda")
     serve_agent_loop(False, cfg, engine, episodes[:1], pe, reason_tokens=1)   # warm-up
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    steps0 = engine.steps_executed
+    steps0, replays0 = engine.steps_executed, engine.graph_replays
     runs = {}
     for spec_on in (False, True):
         dt, steps, hits, spec = serve_agent_loop(spec_on, cfg, engine, episodes, pe)
@@ -761,6 +795,7 @@ def serve_model(M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, c
               flush=True)
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     engine_steps = engine.steps_executed - steps0
+    assert engine.graph_replays - replays0 == engine_steps, "a served step did not replay"
     prefills = 2 * len(episodes) + runs[True].admitted
     print(f"phase 3 {label} launches: {launches} over {prefills} prefills and "
           f"{engine_steps} engine steps of {cfg.n_layers} layers", flush=True)
@@ -951,24 +986,31 @@ def record_moe_drops(moe_mod):
     return drops, lambda: setattr(moe_mod, "moe_forward", real)
 
 
-def moe_drops(M, moe_mod, params, engine, served):
+def moe_drops(M, moe_mod, ServingEngine, params, cfg, steps=16):
     """The share of routed slots that drop per decode step (the mean over
-    the layers): over the engine's steps while it served (``served``, every
-    row routed, inactive ones with their stale tokens too), and over one
-    step of 4 distinct tokens, all slots active. At batch 4 each expert
+    the layers): over ``steps`` served steps of a fresh engine, every slot
+    decoding from a prompt of its own, and over one eager step of 4
+    distinct tokens, all slots active. The engine captures its graph at
+    its first step, the layers' last calls, whose drop fractions each
+    replay rewrites: they are read after each step. At batch 4 each expert
     holds one slot."""
-    cfg = engine.cfg
-    per_step = torch.stack(served).view(-1, cfg.n_layers).mean(dim=1).tolist()
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=192, device="cuda")
+    _fill(engine)
     drops, restore = record_moe_drops(moe_mod)
     try:
+        per_step = []
+        for _ in range(steps):
+            assert engine.step(), "every slot has finished"
+            per_step.append(torch.stack(drops[-cfg.n_layers:]).mean().item())
+        assert engine.graph_replays == steps, "a served step did not replay"
         M.decode_step(params, cfg, engine.cache, torch.arange(2, 6, device="cuda"),
                       active=torch.ones(4, dtype=torch.bool, device="cuda"))
+        distinct = torch.stack(drops[-cfg.n_layers:]).mean().item()
     finally:
         restore()
-    distinct = torch.stack(drops).mean().item()
     print(f"phase 3 {cfg.name} drop_frac per decode step at batch {engine.max_batch} (capacity "
           f"{moe_mod.capacity(engine.max_batch, cfg)} per expert, mean over {cfg.n_layers} "
-          f"layers): over the {len(per_step)} steps served (warm-up included) mean "
+          f"layers): over {len(per_step)} served steps of 4 slots with 19-token prompts mean "
           f"{sum(per_step) / len(per_step):.4f}, min {min(per_step):.4f}, max "
           f"{max(per_step):.4f}; tokens 2-5, all active: {distinct:.4f}; a 19-token prefill "
           f"has capacity {moe_mod.capacity(19, cfg)}; per step: "
@@ -1206,6 +1248,11 @@ def _train_bound_misses(loss, ref_loss, norm, ref_norm, agree):
         if not cos >= TRAIN_BOUND["leaf_cos"]:
             misses.append([f"{key} leaf_cos", cos, TRAIN_BOUND["leaf_cos"]])
     return misses
+
+
+# the kernels of a decode step, which a replayed CUDA graph launches past
+# their wrappers' counters
+DECODE_KERNELS = ("decode_attention", "decode_attention_partials")
 
 
 def kernel_counters():
@@ -2526,13 +2573,14 @@ def main():
     engine, counts, prefills, engine_steps = serve_model(
         M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
-    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
-    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
-    launches["flash_attention"] = counts["flash_attention"]
-    launches["decode_attention"] = counts["decode_attention"]
+    assert engine_steps > 0 and not any(counts[k] for k in DECODE_KERNELS), counts
+    assert counts["ssd_scan"] == 0, counts
     decode_k = [("decode_attention", "decode_attention_kernel")]
     flash_k = [("flash_attention", "flash_attention_bf16_kernel")]
-    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
+    traced = _profile_steps(M, params, engine, cfg.name, decode_k, flash_k,
+                            {"decode_attention": cfg.n_layers})
+    launches["flash_attention"] = counts["flash_attention"]
+    launches["decode_attention"] = traced["decode_attention"]
     check_model(M, cfg, params, engine, cfg.name)
     del engine
 
@@ -2562,13 +2610,13 @@ def main():
         engine, counts, prefills, engine_steps = serve_model(
             M, ServingEngine, serve_agent_loop, cfg_sh, params, pe, episodes, counters, label,
             mesh_info=mi)
-        assert counts["decode_attention_partials"] == \
-            cfg.n_layers * n_model * engine_steps > 0, counts
-        assert counts["decode_attention"] == counts["ssd_scan"] == 0, counts
+        assert engine_steps > 0 and not any(counts[k] for k in DECODE_KERNELS), counts
+        assert counts["ssd_scan"] == 0, counts
         assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
+        traced = _profile_steps(M, params, engine, label, [partials], None,
+                                {"decode_attention_partials": cfg.n_layers * n_model})
         if kv_dtype == "bfloat16":
-            launches["decode_attention_partials"] = counts["decode_attention_partials"]
-        _profile_steps(M, params, engine, label, [partials], None)
+            launches["decode_attention_partials"] = traced["decode_attention_partials"]
         if kv_dtype == "bfloat16":
             # a 100-token prompt: the slot's keys span the first three shards
             check_model(M, cfg, params, engine, label, need=6, prompt=range(5, 105))
@@ -2584,10 +2632,10 @@ def main():
         M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
     assert counts["flash_attention"] == counts["decode_attention"] == 0, counts
-    assert counts["decode_attention_partials"] == 0, counts
+    assert engine_steps > 0 and counts["decode_attention_partials"] == 0, counts
     launches["ssd_scan"] = counts["ssd_scan"]
     ssd_k = [("ssd_scan", "ssd_scan_kernel")]
-    _profile_steps(M, params, engine, cfg.name, [], ssd_k)
+    _profile_steps(M, params, engine, cfg.name, [], ssd_k, {})
     check_model(M, cfg, params, engine, cfg.name)
     del engine, params
     torch.cuda.empty_cache()
@@ -2605,9 +2653,9 @@ def main():
             M, ServingEngine, serve_agent_loop, cfg_kv, params, pe, episodes, counters, label)
         assert counts["ssd_scan"] == cfg.n_layers * prefills > 0, counts
         assert counts["flash_attention"] == groups * prefills > 0, counts
-        assert counts["decode_attention"] == groups * engine_steps > 0, counts
-        assert counts["decode_attention_partials"] == 0, counts
-        _profile_steps(M, params, engine, label, decode_k, ssd_k + flash_k)
+        assert engine_steps > 0 and not any(counts[k] for k in DECODE_KERNELS), counts
+        counts |= _profile_steps(M, params, engine, label, decode_k, ssd_k + flash_k,
+                                 {"decode_attention": groups})
         check_model(M, cfg_kv, params, engine, label)
         clock(f"3-4 {label}")
     launches["int8_hybrid"] = counts
@@ -2630,22 +2678,19 @@ def main():
     cfg = get_config("qwen3-moe-30b-a3b")
     torch.cuda.reset_peak_memory_stats()
     params = init_model(M, cfg)
-    served, restore = record_moe_drops(moe_mod)
-    try:
-        engine, counts, prefills, engine_steps = serve_model(
-            M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
-    finally:
-        restore()
+    engine, counts, prefills, engine_steps = serve_model(
+        M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
-    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
-    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
+    assert engine_steps > 0 and not any(counts[k] for k in DECODE_KERNELS), counts
+    assert counts["ssd_scan"] == 0, counts
+    traced = _profile_steps(M, params, engine, cfg.name, decode_k, flash_k,
+                            {"decode_attention": cfg.n_layers})
     launches["flash_attention"] = counts["flash_attention"]
-    launches["decode_attention"] = counts["decode_attention"]
-    moe_drops(M, moe_mod, params, engine, served)
-    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
+    launches["decode_attention"] = traced["decode_attention"]
     print(f"phase 3 {cfg.name} peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
           f"GB", flush=True)
     del engine
+    moe_drops(M, moe_mod, ServingEngine, params, cfg)
     # the batched slot routes 4 tokens, the standalone decode 1: only a
     # capacity that drops nothing (factor E / k) lets them agree
     free = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -2665,9 +2710,10 @@ def main():
     engine, counts, prefills, engine_steps = serve_model(
         M, ServingEngine, serve_agent_loop, cfg, params, pe, episodes, counters, cfg.name)
     assert counts["flash_attention"] == cfg.n_layers * prefills > 0, counts
-    assert counts["decode_attention"] == cfg.n_layers * engine_steps > 0, counts
-    assert counts["ssd_scan"] == counts["decode_attention_partials"] == 0, counts
-    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k)
+    assert engine_steps > 0 and not any(counts[k] for k in DECODE_KERNELS), counts
+    assert counts["ssd_scan"] == 0, counts
+    _profile_steps(M, params, engine, cfg.name, decode_k, flash_k,
+                   {"decode_attention": cfg.n_layers})
     check_model(M, cfg, params, engine, cfg.name)
     check_embeds(M, cfg, params)
     del engine, params

@@ -41,7 +41,9 @@ SPLIT_ALIGN = 64  # keys per split are a multiple of this (4 warps x 16-key chun
 MAX_KEYS_PER_SPLIT = 128  # each warp's keys fit its 2-stage ring, all in flight at once
 MAX_SPLITS = 64  # the kernel's last block stages every split's m and l (MAX_SPLITS there)
 
-launches = 0  # kernel launches made by decode_attention_kernel; callers may reset it
+# launches made by decode_attention_kernel through this module, which callers
+# may reset; a CUDA graph's replay of a captured launch does not pass here
+launches = 0
 partials_launches = 0  # launches made by decode_attention_partials_kernel; likewise
 
 
@@ -170,6 +172,7 @@ def _partials_kernel():
 
 
 _counters = {}  # device index -> int32 arrival counters, zeroed once; the kernel resets them
+_outgrown = []  # counters a larger batch replaced, kept: a captured CUDA graph holds their address
 
 
 def _split_buffers(q, b, kv, grp, d, n_splits):
@@ -177,11 +180,15 @@ def _split_buffers(q, b, kv, grp, d, n_splits):
     the per-(batch, kv head) arrival counters the kernel's last block of a
     row finds its turn with. The counters are allocated zeroed at first use
     (or when a larger batch needs more) and every launch leaves them 0; so
-    launches that share a device run in one stream's order."""
+    launches that share a device run in one stream's order. A counter is
+    never freed: a CUDA graph that captured a launch replays it on the same
+    address."""
     part = torch.empty(n_splits * b * kv * grp * (d + 2) if n_splits > 1 else 0,
                        dtype=torch.float32, device=q.device)
     counter = _counters.get(q.device.index)
     if counter is None or counter.numel() < b * kv:
+        if counter is not None:
+            _outgrown.append(counter)
         counter = torch.zeros(b * kv, dtype=torch.int32, device=q.device)
         _counters[q.device.index] = counter
     return part, counter

@@ -3,7 +3,9 @@ spans, on the CPU: nothing recorded and no attribute computed while
 recording is off; the nesting, parents and attributes of ``serving.step``
 and ``serving.prefill``; names apart from the benchmark harness's own; and
 the clock: spans annotated under the profiler map through their anchor onto
-the profiler's copies."""
+the profiler's copies; ``serving.step.model``'s ``graph`` and the engine's
+``graph_replays``: false and 0 on the CPU, on a card (a test marked
+``cuda``) true and every step."""
 from __future__ import annotations
 
 import gc
@@ -92,6 +94,35 @@ def test_attributes(engine):
         {"slot": 2, "tokens": 3, "speculative": False, "decoding": 2, "auth_decoding": 1},
     ]
     assert steps == [{"rows": 1, "spec_rows": 0}, {"rows": 3, "spec_rows": 1}]
+
+
+def test_the_model_span_says_whether_the_step_replayed(engine):
+    """On the CPU every step runs eagerly: ``graph`` false, no replay."""
+    obs.record(True)
+    _serve(engine)
+    assert [s.attrs for s in obs.spans() if s.name == "serving.step.model"] == \
+        [{"graph": False}] * 2
+    assert engine.graph_replays == 0 and engine.steps_executed == 2
+
+
+@pytest.mark.cuda
+def test_on_a_card_every_step_replays(params):
+    """On a card the engine captures at its first step and replays every
+    step: ``graph`` true on each ``serving.step.model``, and
+    ``graph_replays`` equal to ``steps_executed``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decode step is captured only there")
+    cfg, _ = params
+    p = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    eng = ServingEngine(cfg, p, max_batch=4, max_len=64, device="cuda")
+    obs.record(True)
+    try:
+        _serve(eng)
+    finally:
+        obs.record(False)
+    assert [s.attrs for s in obs.spans() if s.name == "serving.step.model"] == \
+        [{"graph": True}] * 2
+    assert eng.graph_replays == eng.steps_executed == 2
 
 
 def test_names_are_apart_from_the_harness_spans(engine):
