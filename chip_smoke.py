@@ -24,8 +24,10 @@ script started), so that a reader sees which phase grew:
      and N = 64, and the reduced configs' shape, P = 32, N = 16, chunk 32;
      for attention also zamba2-1.2b's shared block, 32 heads of head_dim
      64, the reduced configs' head_dim 32, qwen3-moe-30b-a3b's 32 heads over
-     4 and musicgen-medium's 24 over 24 of head_dim 64),
-     every kernel also against a second
+     4 and musicgen-medium's 24 over 24 of head_dim 64; zamba2-7b's cell
+     at head_dim 224: flash at S = 2048 and 4096 over 32 heads of 32,
+     decode at 34 rows to Smax 4096, and the SSD scan at 112 heads over 2
+     groups, N = 64, at S = 2048 and 4096), every kernel also against a second
      call of itself (bitwise), with its time, the plain
      version's time, the time of one library call computing the same
      function (scaled_dot_product_attention for attention, a yardstick the
@@ -196,7 +198,9 @@ script started), so that a reader sees which phase grew:
      over the ranks as ``dist_launches``, and the forward kernels with the
      served int8 zamba2-1.2b run's as ``int8_hybrid_launches``, unsharded,
      so no partials; the decode kernels' serving counts are those of the
-     profiled steps' trace); last, one JSON line on the device.
+     profiled steps' trace; flash, decode and the SSD scan also with their
+     times and bounds at zamba2-7b's cell's longest shapes as
+     ``zamba2_7b_at``); last, one JSON line on the device.
 
 Exits non-zero without a CUDA device, outside a checkout of the repository,
 or on any failure. Imports nothing of JAX or of the JAX package.
@@ -2427,7 +2431,7 @@ def main():
                   f"HMMA]: {json.dumps(rows)}", flush=True)
             assert all(r.get("spill_bytes", 0) == 0 for r in report), report
             tc = {fn: n for fn, n in (hmma or {}).items() if "dkdv_bf16" in fn or "dq_bf16" in fn}
-            assert hmma is None or (len(tc) == 2 * len(_build.ATTENTION_HEAD_DIMS)
+            assert hmma is None or (len(tc) == 2 * len(_build.ATTENTION_HEAD_DIMS["flash_attention_bwd"])
                                     and all(tc.values())), hmma
         if name == "ssd_scan_bwd":
             rows = [[r["fn"], r.get("registers"), r.get("spill_bytes", 0),
@@ -2520,6 +2524,22 @@ def main():
                                             (4, 4096, 8, True, timed)):
             cases["ssd_scan"].append(ssd_case(ops, gen, flush, b, s, h, 32, 1, 16, dtype,
                                               with_h0, timed_ssd, chunk=32))
+    # zamba2-7b's cell (zamba2-7b.agent-spec-4k): its shared attention at
+    # head_dim 224 (32 heads over 32) at prefills of 2048 and 4096 tokens and
+    # its decode step (34 rows to Smax 4096), and its SSD scan (112 heads
+    # over 2 groups, P 64, N 64) at the same prefills. A generator of their
+    # own, so that the cases above keep their inputs
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for s in (2048, 4096):
+            cases["flash_attention"].append(
+                flash_case(ops, gen, flush, 1, s, 32, 32, 224, dtype, None, timed))
+        cases["decode_attention"].append(
+            decode_case(ops, gen, flush, 34, 32, 32, 224, 4096, dtype, None, timed))
+        for s in (2048, 4096):
+            cases["ssd_scan"].append(
+                ssd_case(ops, gen, flush, 1, s, 112, 64, 2, 64, dtype, False, timed))
     # the backward kernel (training): musicgen-medium's training step (4 x 128
     # tokens, 24 heads over 24 of head_dim 64), qwen2-7b at S = 2048 causal and
     # under a window of 1024, zamba2-1.2b's shared attention at S = 2048, and
@@ -2820,6 +2840,13 @@ def main():
         k["dist_launches"] = dist_launches[k["name"]]
     for k in kernels[:4]:   # the forward kernels on the int8 zamba2-1.2b path
         k["int8_hybrid_launches"] = launches["int8_hybrid"][k["name"]]
+    # the forward kernels at zamba2-7b's cell's longest shapes (that cell's
+    # launches are the benchmark's to count)
+    for k, shape in ((kernels[0], [1, 4096, 32, 32, 224]), (kernels[1], [34, 32, 32, 224, 4096]),
+                     (kernels[3], [1, 4096, 112, 64, 2, 64])):
+        c = case_at(k["name"], shape)
+        k["zamba2_7b_at"] = {key: c[key] for key in ("shape", "ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by")}
     clock("5")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,6 +62,15 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     attn_every: int = 0               # hybrid: shared attn block after layers i%attn_every==attn_every-1
+    # --- Zamba2's shared transformer blocks (hybrid; unset, the Zamba-style
+    # block above: one attention block added to the residual) ---
+    # the layers whose Mamba2 input takes a shared block's output, in order
+    # (Zamba2's hybrid_layer_ids); None: the Zamba-style block after every
+    # attn_every-th layer. Set, there are n_layers // attn_every of them, and
+    # each block reads concat(h, embeddings) and runs a gated-GELU MLP of d_ff.
+    hybrid_sites: Optional[Tuple[int, ...]] = None
+    n_shared_blocks: int = 1          # site k runs shared block k % n_shared_blocks
+    shared_lora_rank: int = 0         # rank of each site's own LoRA on the MLP's gate_up
     frontend: str = "tokens"          # tokens | patch (vlm) | frames (audio)
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -81,6 +90,31 @@ class ModelConfig:
     # perf: int8 KV cache (per-token-per-head absmax scales) — halves the
     # decode memory-roofline cache-streaming term
     kv_cache_dtype: str = "bfloat16"   # bfloat16 | int8
+
+    def __post_init__(self):
+        if self.hybrid_sites is None:
+            if (self.n_shared_blocks, self.shared_lora_rank) != (1, 0):
+                raise ValueError("more than one shared block, or a LoRA, needs hybrid_sites "
+                                 "(the Zamba2 order)")
+            return
+        sites = tuple(int(i) for i in self.hybrid_sites)
+        object.__setattr__(self, "hybrid_sites", sites)   # a JSON list, hashable now
+        if self.family != "hybrid" or not self.attn_every:
+            raise ValueError("hybrid_sites belong to a hybrid config with attn_every")
+        if len(sites) != self.n_layers // self.attn_every:
+            raise ValueError(f"{len(sites)} hybrid_sites, but the cache holds "
+                             f"n_layers // attn_every = {self.n_layers // self.attn_every}")
+        if list(sites) != sorted(set(sites)) or not 0 <= sites[0] <= sites[-1] < self.n_layers:
+            raise ValueError(f"hybrid_sites {sites} must rise strictly within the layers")
+        if self.n_shared_blocks < 1 or self.shared_lora_rank < 1:
+            raise ValueError("the Zamba2 order needs a shared block and each site's LoRA")
+
+    @property
+    def attn_scale(self) -> float:
+        """The attention scores' scale: (head_dim / 2)^-0.5 in the Zamba2
+        order, as published, else head_dim^-0.5."""
+        hd = self.resolved_head_dim
+        return (hd / 2 if self.hybrid_sites is not None else hd) ** -0.5
 
     # ------------------------------------------------------------------
     @property

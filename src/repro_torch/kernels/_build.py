@@ -28,10 +28,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "ssd_scan",
            "ssd_scan_bwd")
-# The head_dims that csrc/flash_attention.cu, csrc/flash_attention_bwd.cu and
-# csrc/decode_attention.cu instantiate (their ``switch (d)``); the wrappers
-# check against this.
-ATTENTION_HEAD_DIMS = (32, 64, 128)
+# The head_dims each attention kernel instantiates (its entry's ``switch
+# (d)``); the wrappers check against these. Serving runs the forward flash
+# and the decode kernel at Zamba2-7B's 224 too; the backward, which only
+# training runs, and the sharded decode's partials are built for the rest.
+ATTENTION_HEAD_DIMS = {
+    "flash_attention": (32, 64, 128, 224),
+    "decode_attention": (32, 64, 128, 224),
+    "decode_attention_partials": (32, 64, 128),
+    "flash_attention_bwd": (32, 64, 128),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -56,13 +56,18 @@
 //   are issued together, so each costs one trip to memory.
 //
 // Head dims: the head_dim D is a template parameter, built for 32, 64
-//   (zamba2-1.2b's shared attention, musicgen-medium) and 128 (the dense
-//   configs). It sizes the rings (rows padded to 40, 72 or 136 bf16, which
-//   keep an ldmatrix phase's eight rows on distinct banks), the fragments,
-//   the q staging and the merge buffers. Both merges give each thread
-//   (group row, head dim) pairs, e = tid, tid + NT, ... over grp x D, so all
-//   128 threads work at every D and each element still sums its warps, then
-//   its splits, in a fixed order.
+//   (zamba2-1.2b's shared attention, musicgen-medium), 128 (the dense
+//   configs) and 224 (Zamba2-7B's shared blocks; the plain entry only). It
+//   sizes the rings (rows padded to 40, 72, 136 or 232 bf16, which keep an
+//   ldmatrix phase's eight rows on distinct banks), the fragments, the q
+//   staging and the merge buffers. Both merges give each thread (group row,
+//   head dim) pairs, e = tid, tid + NT, ... over grp x D, so all 128 threads
+//   work at every D and each element still sums its warps, then its splits,
+//   in a fixed order. At 224 (112 accumulator floats a lane) the bf16 body
+//   uses 255 registers and spills 224 bytes, the fp32 one 668 (ptxas); Q's
+//   fragments kept in shared memory instead spilled 328. An fp32 cache (tests
+//   only) at 224 has one ring stage a warp, not two, which would pass the
+//   shared memory a block may have.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +79,6 @@ namespace {
 constexpr int NW = 4;      // warps per block
 constexpr int NT = NW * 32;
 constexpr int CK = 16;     // keys per warp chunk (one mma k-step of P V)
-constexpr int NST = 2;     // ring stages per warp
 constexpr int MAXG = 16;   // largest GQA group: the 16 rows of an mma tile
 constexpr int MAX_SPLITS = 64;  // the last block stages every split's m and l
 constexpr float NEG_INF = -1e30f;
@@ -84,8 +88,13 @@ constexpr float NEG_INF = -1e30f;
 template <typename T, int D> __host__ __device__ constexpr int row_stride() {
   return D + 16 / (int)sizeof(T);
 }
+// ring stages per warp: 2, or 1 for an fp32 cache above D = 128, whose two
+// stages would pass the 227 KB of shared memory a block may have
+template <typename T, int D> __host__ __device__ constexpr int nst() {
+  return sizeof(T) == 4 && D > 128 ? 1 : 2;
+}
 template <typename T, int D> __host__ __device__ constexpr int ring_bytes() {
-  return NW * NST * 2 * CK * row_stride<T, D>() * (int)sizeof(T);
+  return NW * nst<T, D>() * 2 * CK * row_stride<T, D>() * (int)sizeof(T);
 }
 template <int D> __host__ __device__ constexpr int qs_bytes() { return MAXG * D * 4; }
 template <int D> __host__ __device__ constexpr int merge_bytes() {
@@ -259,14 +268,14 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     float* __restrict__ l_out, float* __restrict__ part, int* __restrict__ counter, int Smax,
     long batch_stride, int H, int KV, int window, float scale, int kps) {
   constexpr int RS = row_stride<T, D>();
+  constexpr int NST = nst<T, D>();
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
   constexpr int CPR = D / EPC;         // copies per cache row
   constexpr int QS_BYTES = qs_bytes<D>();
   constexpr bool QLO = sizeof(TQ) == 4 && sizeof(T) == 2;
-  static_assert(merge_bytes<D>() <= ring_bytes<__nv_bfloat16, D>(),
-                "merge area overlays the ring");
+  static_assert(merge_bytes<D>() <= ring_bytes<T, D>(), "merge area overlays the ring");
   static_assert((2 * MAX_SPLITS + 2) * MAXG * 4 <= merge_bytes<D>(), "the splits' m and l fit");
-  static_assert(CK * CPR % 32 == 0 && MAXG * D % NT == 0 && NT % D == 0,
+  static_assert(CK * CPR % 32 == 0 && MAXG * D % NT == 0,
                 "copies, q staging and the cross-split merge fill whole rounds");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
@@ -487,13 +496,16 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     rl[tid] = ll;
   }
   __syncthreads();
-  // each thread keeps head dim c of the group rows r0, r0 + RP, ... (every
-  // row at D = 128, every second at 64, every fourth at 32); the rows of SB
-  // splits are loaded together, then summed in split order
-  constexpr int SB = 4;
-  constexpr int RP = NT / D;    // threads per head dim
-  constexpr int MR = MAXG / RP;  // group rows per thread, at most
-  const int c = tid % D, r0 = tid / D;
+  // each thread keeps the (group row, head dim) pairs e = tid + i NT: head
+  // dim c0 = tid % D of the rows r0, r0 + NT / D, ... where D divides NT
+  // (every row at D = 128, every second at 64, every fourth at 32), so the
+  // index is worked out once; two head dims of each of 28 pairs at 224. The
+  // pairs of SB splits are loaded together, then summed in split order
+  constexpr int SB = D > 128 ? 2 : 4;
+  constexpr int MR = MAXG * D / NT;  // pairs per thread, at most
+  const int c0 = tid % D, r0 = tid / D;
+  auto row = [&](int i) { return NT % D == 0 ? r0 + i * (NT / D) : (tid + i * NT) / D; };
+  auto dim = [&](int i) { return NT % D == 0 ? c0 : (tid + i * NT) % D; };
   float a[MR];
 #pragma unroll
   for (int i = 0; i < MR; ++i) a[i] = 0.f;
@@ -503,22 +515,22 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     for (int j = 0; j < SB; ++j)
 #pragma unroll
       for (int i = 0; i < MR; ++i) {
-        const int gi = r0 + i * RP;
+        const int gi = row(i);
         x[j][i] = gi < grp && sp0 + j < n_real
-                      ? __ldcg(part_acc + ((long)(sp0 + j) * grp + gi) * D + c) : 0.f;
+                      ? __ldcg(part_acc + ((long)(sp0 + j) * grp + gi) * D + dim(i)) : 0.f;
       }
 #pragma unroll
     for (int j = 0; j < SB; ++j)
 #pragma unroll
       for (int i = 0; i < MR; ++i) {
-        const int gi = r0 + i * RP;
+        const int gi = row(i);
         if (gi < grp && sp0 + j < n_real) a[i] += x[j][i] * sm[(sp0 + j) * grp + gi];
       }
   }
 #pragma unroll
   for (int i = 0; i < MR; ++i) {
-    const int gi = r0 + i * RP;
-    if (gi < grp) emit(gi, c, a[i], rm[gi], rl[gi]);
+    const int gi = row(i);
+    if (gi < grp) emit(gi, dim(i), a[i], rm[gi], rl[gi]);
   }
   if (tid == 0) counter[rowkv] = 0;  // ready for the next launch
 }
@@ -583,7 +595,7 @@ int launch_partials(const void* q, const void* k, const void* v, const void* len
 }  // namespace
 
 // q (B,H,D), k/v (B,Smax,KV,D), lengths (B,) int32, o (B,H,D), all contiguous.
-// D is 32, 64 or 128, the head_dims the kernel is built for.
+// D is 32, 64, 128 or 224, the head_dims the kernel is built for.
 // dtype: 0 float32, 1 bfloat16. window < 0 means none. n_splits splits of
 // kps keys (a multiple of 64) from each row's first visited key; part is fp32
 // scratch of n_splits * B * H * (D + 2) floats (unused with one split) and
@@ -605,6 +617,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
     case 32: return run(std::integral_constant<int, 32>{});
     case 64: return run(std::integral_constant<int, 64>{});
     case 128: return run(std::integral_constant<int, 128>{});
+    case 224: return run(std::integral_constant<int, 224>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -614,6 +627,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
 // and sequences batch_stride elements apart, every row 16-byte aligned;
 // lengths (B,) int32 measured against the slice (0 allowed); acc (B,KV,grp,D),
 // m and l (B,KV,grp), fp32, contiguous. kv_dtype: 0 float32, 1 bfloat16.
+// D is 32, 64 or 128: no sharded decode runs at 224, where the fp32 query's
+// bf16 hi + lo fragments would add 56 registers a lane to the 112 of the
+// accumulator.
 // n_splits, kps, part and counter as for decode_attention_fwd.
 extern "C" int decode_attention_partials_fwd(const void* q, const void* k, const void* v,
                                              const void* lengths, void* acc, void* m, void* l,

@@ -26,7 +26,7 @@
 //   of 4 warps per (64-row query tile, head, batch), each warp holding 16
 //   query rows; the Q tile arrives by cp.async and its fragments are loaded
 //   once by ldmatrix into registers. The TPU kernel's sequential K grid axis
-//   is a loop inside the block over 64-key tiles, from the window's first
+//   is a loop inside the block over 64-key tiles (32 at 224), from the window's first
 //   tile to the causal limit, so wholly masked tiles are never loaded. K and
 //   V tiles arrive by 16-byte cp.async into a 2-stage bf16 ring in dynamic
 //   shared memory (rows padded by 16 bytes, so ldmatrix is free of bank
@@ -42,12 +42,17 @@
 //   wgmma with TMA loads and warp specialisation.
 //
 // Head dims: both bodies take the head_dim as a template parameter, built
-//   for 32, 64 (zamba2-1.2b's shared attention, musicgen-medium) and 128
-//   (the dense configs). It sizes the Q fragments, the accumulator, the copy
-//   loop and the padded row stride of the staged tiles: 40, 72 or 136 bf16
-//   (80, 144 or 272 bytes), each of which puts the eight rows of an ldmatrix
-//   phase on distinct banks. Shared memory for the Q tile and 2 K/V stages:
-//   25, 45 or 85 KB.
+//   for 32, 64 (zamba2-1.2b's shared attention, musicgen-medium), 128 (the
+//   dense configs) and 224 (Zamba2-7B's shared blocks). It sizes the Q
+//   fragments, the accumulator, the copy loop and the padded row stride of
+//   the staged tiles: 40, 72, 136 or 232 bf16 (80, 144, 272 or 464 bytes:
+//   5, 9, 17 or 29 sixteen-byte units, each odd, so the eight rows of an
+//   ldmatrix phase fall on distinct banks). Shared memory for the Q tile and
+//   2 K/V stages: 25, 45, 85 or 87 KB. At 224 the accumulator alone is 112
+//   floats a lane, so the Q fragments are re-read from shared memory at each
+//   key tile instead of held in 56 more registers, a key tile is 32 keys, not
+//   64 (16 score floats a lane, not 32), and the fp32 body stages 16 keys a
+//   tile (its static tiles of 32 would pass 48 KB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,12 +60,12 @@
 namespace {
 
 constexpr int BQ = 16;          // query rows per block
-constexpr int BK = 32;          // keys per tile
 constexpr int NT = 128;         // threads per block
 constexpr int TPR = NT / BQ;    // threads per query row (8, consecutive lanes)
-constexpr int KPT = BK / TPR;   // keys scored per thread per tile (4)
-constexpr int PS = BK + 1;      // padded row stride of the probability tile
 constexpr float NEG_INF = -1e30f;
+// keys per tile of the fp32 body: 32, or 16 above D = 128, where the staged
+// fp32 tiles of 32 keys would pass the 48 KB of static shared memory
+template <int D> __host__ __device__ constexpr int fbk() { return D > 128 ? 16 : 32; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -76,6 +81,9 @@ __global__ void __launch_bounds__(NT) flash_attention_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal,
     int window, float scale) {
+  constexpr int BK = fbk<D>();  // keys per tile
+  constexpr int KPT = BK / TPR; // keys scored per thread per tile (4, or 2)
+  constexpr int PS = BK + 1;    // padded row stride of the probability tile
   constexpr int DP = D + 1;     // padded row stride of the q and k tiles
   constexpr int CPT = D / TPR;  // accumulator columns per thread
   __shared__ float qs[BQ * DP];
@@ -191,11 +199,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 // ---- bf16: tensor cores -------------------------------------------------
 
 constexpr int TBQ = 64;          // query rows per block, 16 per warp
-constexpr int TBK = 64;          // keys per tile
-// per head_dim TD: the padded row stride (bf16 elements, +16 bytes), one
-// staged K or V tile, and the dynamic shared memory (Q tile + 2 K/V stages)
+// per head_dim TD: keys per tile (64; 32 above TD = 128, which halves the
+// score fragments a lane holds beside its TD / 2 accumulator floats), the
+// padded row stride (bf16 elements, +16 bytes), one staged K or V tile, and
+// the dynamic shared memory (Q tile + 2 K/V stages)
+template <int TD> __host__ __device__ constexpr int tbk() { return TD > 128 ? 32 : 64; }
 template <int TD> __host__ __device__ constexpr int trs() { return TD + 8; }
-template <int TD> __host__ __device__ constexpr int tile() { return TBK * trs<TD>(); }
+template <int TD> __host__ __device__ constexpr int tile() { return tbk<TD>() * trs<TD>(); }
 template <int TD> __host__ __device__ constexpr int tsmem() {
   return (TBQ * trs<TD>() + 2 * 2 * tile<TD>()) * 2;
 }
@@ -237,14 +247,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 64 rows of TD bf16 from global (rows row0.. of a (rows, stride) array) to
-// a padded shared tile; rows at or past n_rows are zero-filled
-template <int TD>
+// ROWS rows of TD bf16 from global (rows row0.. of a (rows, stride) array)
+// to a padded shared tile; rows at or past n_rows are zero-filled
+template <int TD, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long stride, int row0, int n_rows, int tid) {
-  static_assert(64 * TD / 8 % NT == 0, "the 16-byte copies of a tile fill whole rounds");
+  static_assert(ROWS * TD / 8 % NT == 0, "the 16-byte copies of a tile fill whole rounds");
 #pragma unroll
-  for (int j = 0; j < 64 * TD / 8 / NT; ++j) {
+  for (int j = 0; j < ROWS * TD / 8 / NT; ++j) {
     const int e = tid + j * NT, r = e / (TD / 8), col = e % (TD / 8) * 8;
     const bool in = row0 + r < n_rows;
     cp_async16(dst + r * trs<TD>() + col, src + (in ? (row0 + r) * stride + col : 0), in);
@@ -257,6 +267,7 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal, int window,
     float scale) {
+  constexpr int TBK = tbk<TD>();
   constexpr int TRS = trs<TD>();
   constexpr int TILE = tile<TD>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -285,21 +296,25 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
   const int k_begin = window >= 0 ? max(0, qpos_lo - window + 1) / TBK * TBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + TBK - 1) / TBK : 0;
 
-  load_tile<TD>(qs, qb, q_stride, q0, Sq, tid);
+  load_tile<TD, TBQ>(qs, qb, q_stride, q0, Sq, tid);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_tile<TD>(ring, kb, kv_stride, k_begin, Sk, tid);
-    load_tile<TD>(ring + TILE, vb, kv_stride, k_begin, Sk, tid);
+    load_tile<TD, TBK>(ring, kb, kv_stride, k_begin, Sk, tid);
+    load_tile<TD, TBK>(ring + TILE, vb, kv_stride, k_begin, Sk, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();  // the Q tile
   __syncthreads();
-  uint32_t qa[TD / 16][4];  // A fragments of this warp's 16 rows, TD / 16 k-steps
-  {
-    const __nv_bfloat16* base =
-        qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TRS + (lane >> 4) * 8;
+  // A fragments of this warp's 16 rows, TD / 16 k-steps: held in registers
+  // up to TD = 128; above, re-read from the staged Q tile at each key tile,
+  // which leaves the registers to the accumulator's TD / 2 floats a lane
+  constexpr bool QREG = TD <= 128;
+  uint32_t qa[QREG ? TD / 16 : 1][4];
+  const __nv_bfloat16* qbase =
+      qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * TRS + (lane >> 4) * 8;
+  if constexpr (QREG) {
 #pragma unroll
-    for (int ks = 0; ks < TD / 16; ++ks) ldmatrix_x4(qa[ks], base + ks * 16);
+    for (int ks = 0; ks < TD / 16; ++ks) ldmatrix_x4(qa[ks], qbase + ks * 16);
   }
 
   const int qp0 = q0 + warp * 16 + g + off;  // positions of rows g and g + 8
@@ -313,8 +328,8 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
     const int k0 = k_begin + i * TBK;
     if (i + 1 < n_tiles) {  // the next tile's copy overlaps this tile's products
       __nv_bfloat16* nxt = ring + ((i + 1) & 1) * 2 * TILE;
-      load_tile<TD>(nxt, kb, kv_stride, k0 + TBK, Sk, tid);
-      load_tile<TD>(nxt + TILE, vb, kv_stride, k0 + TBK, Sk, tid);
+      load_tile<TD, TBK>(nxt, kb, kv_stride, k0 + TBK, Sk, tid);
+      load_tile<TD, TBK>(nxt + TILE, vb, kv_stride, k0 + TBK, Sk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile
@@ -329,14 +344,22 @@ __global__ void __launch_bounds__(NT) flash_attention_bf16_kernel(
       const __nv_bfloat16* base =
           ks + ((lane >> 4) * 8 + (lane & 7)) * TRS + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kstep = 0; kstep < TD / 16; ++kstep)
+      for (int kstep = 0; kstep < TD / 16; ++kstep) {
+        uint32_t a[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = qa[kstep][r];
+        } else {
+          ldmatrix_x4(a, qbase + kstep * 16);
+        }
 #pragma unroll
         for (int pr = 0; pr < TBK / 16; ++pr) {
           uint32_t bf[4];  // b0, b1 of keys 16 pr .. +7, then of keys +8 .. +15
           ldmatrix_x4(bf, base + pr * 16 * TRS + kstep * 16);
-          mma_bf16(s[2 * pr], qa[kstep], bf[0], bf[1]);
-          mma_bf16(s[2 * pr + 1], qa[kstep], bf[2], bf[3]);
+          mma_bf16(s[2 * pr], a, bf[0], bf[1]);
+          mma_bf16(s[2 * pr + 1], a, bf[2], bf[3]);
         }
+      }
     }
     const bool edge = (causal && k0 + TBK - 1 > qpos_lo) ||
                       (window >= 0 && k0 <= qpos_hi - window) || k0 + TBK > Sk;
@@ -461,8 +484,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // q (B,Sq,H,D), k/v (B,Sk,KV,D), o (B,Sq,H,D), all contiguous; lse (B,H,Sq)
-// f32, or null to write none. D is 32, 64 or 128, the head_dims the kernel
-// is built for. dtype: 0 float32, 1 bfloat16. window < 0 means none.
+// f32, or null to write none. D is 32, 64, 128 or 224, the head_dims the
+// kernel is built for. dtype: 0 float32, 1 bfloat16. window < 0 means none.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int Sq, int Sk, int H, int KV, int D,
@@ -475,6 +498,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 64: return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
     case 128:
       return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
+    case 224:
+      return launch<224>(q, k, v, o, lse, B, Sq, Sk, H, KV, causal, window, scale, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,7 +33,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = _build.ATTENTION_HEAD_DIMS  # the head_dims the kernel is built for
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS["decode_attention"]  # the plain entry's head_dims
+PARTIALS_HEAD_DIMS = _build.ATTENTION_HEAD_DIMS["decode_attention_partials"]
 MAX_GROUP = 16  # query heads per kv head the kernel holds (MAXG in the source)
 _BLOCK_K = 1024  # cache rows per step of the plain version's loop
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM, the card the split is sized for
@@ -202,7 +203,7 @@ def _error_string(err: int) -> str:
     return fn(err).decode()
 
 
-def _check_common(who, q, k_cache, v_cache, lengths, window):
+def _check_common(who, q, k_cache, v_cache, lengths, window, head_dims=HEAD_DIMS):
     if not q.is_cuda:
         raise ValueError(f"{who} runs on CUDA tensors only; got a tensor on {q.device}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("lengths", lengths)):
@@ -225,8 +226,8 @@ def _check_common(who, q, k_cache, v_cache, lengths, window):
     if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv or lengths.shape != (b,):
         raise ValueError(f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)} and lengths "
                          f"{tuple(lengths.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not supported; {who} is built for {head_dims}")
     if h // kv > MAX_GROUP:
         raise ValueError(f"GQA group {h // kv} exceeds the kernel's {MAX_GROUP}")
     if window is not None and window < 1:
@@ -253,7 +254,8 @@ def _check_partials(q, k_cache, v_cache, lengths, window):
     """As :func:`_check`, but q is float32 against a float32 or bfloat16
     cache, and the cache may be a slice of the sequence axis of a larger
     one: rows contiguous, sequences any 16-byte multiple apart."""
-    _check_common("decode_attention_partials_kernel", q, k_cache, v_cache, lengths, window)
+    _check_common("decode_attention_partials_kernel", q, k_cache, v_cache, lengths, window,
+                  PARTIALS_HEAD_DIMS)
     if q.dtype != torch.float32:
         raise ValueError(f"q must be float32 (pre-scaled), got {q.dtype}")
     _, chunk, kv, d = k_cache.shape

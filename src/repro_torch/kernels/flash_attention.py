@@ -34,7 +34,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = _build.ATTENTION_HEAD_DIMS  # the head_dims the kernel is built for
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS["flash_attention"]  # the forward's head_dims
+BWD_HEAD_DIMS = _build.ATTENTION_HEAD_DIMS["flash_attention_bwd"]  # the backward's
 _BLOCK_K = 128  # keys per step of the plain version's loop
 
 launches = 0      # kernel launches made by flash_attention_kernel; callers may reset it
@@ -252,7 +253,8 @@ def _error_string(err: int, source: str = "flash_attention") -> str:
     return fn(err).decode()
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+           head_dims=HEAD_DIMS, who: str = "the kernel"):
     if not q.is_cuda:
         raise ValueError("flash_attention_kernel runs on CUDA tensors only; "
                          f"got a tensor on {q.device}")
@@ -272,8 +274,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported; the kernel is built for {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not supported; {who} is built for {head_dims}")
     if sq > k.shape[1]:
         raise ValueError(f"more queries ({sq}) than keys ({k.shape[1]})")
     if window is not None and window < 1:
@@ -318,7 +320,7 @@ def flash_attention_bwd_kernel(
     PyTorch's current stream): (dq, dk, dv) in q's dtype. Raises on a CPU
     tensor, on an input it does not take, or if a launch fails."""
     global bwd_launches
-    _check(q, k, v, window)
+    _check(q, k, v, window, BWD_HEAD_DIMS, "the backward kernel (training only)")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     for name, t in (("o", o), ("do", do)):

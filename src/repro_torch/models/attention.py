@@ -43,11 +43,13 @@ from repro_torch.models.common import (apply_rope, blocks, dense_init, from_bloc
 
 
 def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                     device) -> dict:
+                     device, d_in: Optional[int] = None) -> dict:
     """Random weights for the real heads, drawn as without padding; zero
     columns of ``wq``/``wk``/``wv`` and zero rows of ``wo`` for the padded
-    ones, and biases sized to the padded heads."""
+    ones, and biases sized to the padded heads. The projections read
+    ``d_in`` features (Zamba2's concat input), d_model by default."""
     D, hd = cfg.d_model, cfg.resolved_head_dim
+    Din = d_in or D
     H, KV = cfg.n_heads, cfg.n_kv_heads
     Hp, KVp = cfg.eff_n_heads, cfg.eff_n_kv_heads
     F = torch.nn.functional
@@ -56,9 +58,9 @@ def init_attn_params(generator: torch.Generator, cfg: ModelConfig, dtype: torch.
         return F.pad(dense_init(generator, shape, dtype=dtype, device=device), pad)
 
     p = {
-        "wq": init((D, H * hd), (0, (Hp - H) * hd)),
-        "wk": init((D, KV * hd), (0, (KVp - KV) * hd)),
-        "wv": init((D, KV * hd), (0, (KVp - KV) * hd)),
+        "wq": init((Din, H * hd), (0, (Hp - H) * hd)),
+        "wk": init((Din, KV * hd), (0, (KVp - KV) * hd)),
+        "wv": init((Din, KV * hd), (0, (KVp - KV) * hd)),
         "wo": init((H * hd, D), (0, 0, 0, (Hp - H) * hd)),
     }
     if cfg.qkv_bias:
@@ -101,17 +103,18 @@ def _roped_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _flash(q, k, v, cfg: ModelConfig, impl: str) -> torch.Tensor:
-    """``ops.flash_attention``, causal under the config's window. On
+    """``ops.flash_attention``, causal under the config's window and scale. On
     DTensors (the dry-run) each rank runs it on its block, its batch rows
     and its whole kv-head groups (as q holds them, k and v laid out alike,
     the sequence whole), as GSPMD partitions attention: DTensor would
     otherwise propagate every op of the attention's loop, merging sharded
     dims that it can only track at a cost that grows with the mesh."""
     if not isinstance(q, DTensor):
-        return ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
+        return ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                                   scale=cfg.attn_scale, impl=impl)
     pl = kept_shards(q, {0: 0, 2: 2})
     o = ops.flash_attention(*blocks(pl, q, k, v), causal=True, window=cfg.sliding_window,
-                            impl=impl)
+                            scale=cfg.attn_scale, impl=impl)
     return DTensor.from_local(o, q.device_mesh, pl, run_check=False)
 
 
@@ -242,14 +245,15 @@ def attn_decode(
     if quant:
         k_cache, v_cache = kv_dequantize(*k_cache, x.dtype), kv_dequantize(*v_cache, x.dtype)
     if isinstance(x, DTensor):
-        o = _decode_dtensor(q, k_cache, v_cache, eff_len, window, impl)
+        o = _decode_dtensor(q, k_cache, v_cache, eff_len, window, cfg.attn_scale, impl)
     else:
-        o = ops.decode_attention(q.contiguous(), k_cache, v_cache, eff_len, window=window,
-                                 impl=impl)
+        o = ops.decode_attention(q.contiguous(), k_cache, v_cache, eff_len,
+                                 scale=cfg.attn_scale, window=window, impl=impl)
     return reduce_partial(o.reshape(b, 1, -1) @ p["wo"])
 
 
-def _decode_dtensor(q: DTensor, k_cache: DTensor, v_cache: DTensor, eff_len, window, impl):
+def _decode_dtensor(q: DTensor, k_cache: DTensor, v_cache: DTensor, eff_len, window, scale,
+                    impl):
     """``ops.decode_attention`` on this rank's block of DTensors (the
     dry-run): the cache's batch rows and kv heads as it holds them, its
     sequence gathered whole (as GSPMD gathers a sequence-sharded cache for
@@ -259,7 +263,8 @@ def _decode_dtensor(q: DTensor, k_cache: DTensor, v_cache: DTensor, eff_len, win
     q_l, = blocks(q_pl, q)
     k_l, v_l = blocks(cache_pl, k_cache, v_cache)
     len_l, = blocks(kept_shards(k_cache, {0: 0}), eff_len)
-    o = ops.decode_attention(q_l.contiguous(), k_l, v_l, len_l, window=window, impl=impl)
+    o = ops.decode_attention(q_l.contiguous(), k_l, v_l, len_l, scale=scale, window=window,
+                             impl=impl)
     return DTensor.from_local(o, q.device_mesh, q_pl, run_check=False)
 
 
@@ -311,7 +316,7 @@ def attn_decode_sharded(
 
     q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
     # pre-scaled f32 q, (B, KV*grp, hd) in kv-major order as the kernel reads it
-    qg = (q.float() * hd ** -0.5).contiguous()
+    qg = (q.float() * cfg.attn_scale).contiguous()
     slot, eff_len, win = _decode_plan(cfg, lengths, smax)
 
     # the new row lands on the one shard whose range holds its slot (the
@@ -354,7 +359,7 @@ def _attn_decode_dist(p: dict, x: torch.Tensor, k_cache, v_cache, lengths: torch
     chunk = _cache_smax(k_cache)
     hd, H = cfg.resolved_head_dim, cfg.eff_n_heads
     q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
-    qg = (q.float() * hd ** -0.5).contiguous()
+    qg = (q.float() * cfg.attn_scale).contiguous()
     slot, eff_len, win = _decode_plan(cfg, lengths, chunk * mesh_info.n_model)
     off = mesh.axis_index(ma) * chunk
     in_rng = (slot >= off) & (slot < off + chunk)
@@ -400,7 +405,7 @@ def _attn_decode_dtensor(p: dict, x: DTensor, k_cache, v_cache, lengths, cfg: Mo
 
     kc, vc = laid_out(k_cache), laid_out(v_cache)
     q, k_new, v_new = _roped_decode_qkv(p, x, lengths, cfg)
-    qg = (q.float() * hd ** -0.5).redistribute(mesh, rows).to_local().contiguous()
+    qg = (q.float() * cfg.attn_scale).redistribute(mesh, rows).to_local().contiguous()
     slot, eff_len, win = _decode_plan(cfg, lengths, _cache_smax(kc))
     _append(kc, vc, k_new, v_new, (None, slot), active)
     k_eff, v_eff = (tuple(t.to_local() for t in c) if quant else c.to_local()

@@ -15,7 +15,16 @@ Design notes
   by ONE shared attention block (``params["shared_attn"]``, the same
   weights every time, fresh K/V per application), then a tail of
   ``n_layers % attn_every`` Mamba2 layers (:func:`hybrid_split`). The
-  Mamba2 layers are the SSM family's, in the same loop.
+  Mamba2 layers are the SSM family's, in the same loop. With
+  ``cfg.hybrid_sites`` the order is Zamba2's: before the Mamba2 of each of
+  those G layers (site k), shared block k % ``n_shared_blocks``
+  (``params["shared_blocks"]``: attention, then a gated-GELU MLP) reads
+  ``concat(h, e)``, e the embeddings carried beside h; the site's own LoRA
+  and projection (``params["sites"][k]``) finish it, and its output t
+  enters that layer as ``h + Mamba2(RMSNorm(h + t))`` (:func:`_shared_block`,
+  one device only). Site k's K/V go to the cache's G axis at k. With
+  recording on (``repro_torch.obs``) each such call on the eager paths is a
+  ``model.shared_block`` span (site, block, tokens).
 * **weights are (in, out)** and applied as ``x @ w``, as in the JAX package.
 * **MoE**: a block's ``moe`` (router f32, experts stacked on a leading E
   axis) takes the place of ``mlp``; :func:`forward` returns the layers'
@@ -60,6 +69,7 @@ Design notes
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -67,13 +77,15 @@ import torch
 import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_axes, mesh_counts, on_ranks
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import embed_init, reduce_partial, reduced_grad, rms_norm
+from repro_torch.models.common import (dense_init, embed_init, reduce_partial, reduced_grad,
+                                       rms_norm)
 
 _IMPLS = {"auto": "auto", "pallas": "kernel", "ref": "ref"}
 
@@ -110,10 +122,39 @@ def hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
 def _shared_attn_index(cfg: ModelConfig, i: int) -> Optional[int]:
     """In a hybrid, which application of the shared attention block follows
     Mamba2 layer i (the last of each group of ``attn_every``; the tail has
-    none), else None."""
-    if cfg.family != "hybrid" or (i + 1) % cfg.attn_every:
+    none; none in the Zamba2 order), else None."""
+    if cfg.family != "hybrid" or cfg.hybrid_sites is not None or (i + 1) % cfg.attn_every:
         return None
     return (i + 1) // cfg.attn_every - 1
+
+
+def _sites(cfg: ModelConfig) -> Dict[int, int]:
+    """In the Zamba2 order, {layer: site} of the layers a shared block
+    feeds; else empty."""
+    return {i: k for k, i in enumerate(cfg.hybrid_sites or ())}
+
+
+def _shared_block(params, cfg: ModelConfig, k: int, h: torch.Tensor, e: torch.Tensor,
+                  attn) -> torch.Tensor:
+    """Site k's output t: shared block k % n_shared_blocks on concat(h, e),
+    RMSNorm, attention (``attn(p, x)``, the forward's, prefill's or
+    decode's, which fills the cache where it has one), RMSNorm, the gated
+    GELU MLP with the site's LoRA, then the site's projection. The block
+    keeps no residual of its own."""
+    b = k % cfg.n_shared_blocks
+    with _span(k, b, h):
+        blk, site = params["shared_blocks"][b], params["sites"][k]
+        a = attn(blk["attn"], rms_norm(torch.cat([h, e], dim=-1), blk["ln1"], cfg.norm_eps))
+        y = mlp_mod.gelu_mlp_forward(blk["mlp"], rms_norm(a, blk["ln2"], cfg.norm_eps), site)
+        return y @ site["proj"]
+
+
+def _span(k: int, b: int, h: torch.Tensor):
+    """``model.shared_block`` while recording, outside a graph capture
+    (replays run no Python, so they record nothing)."""
+    if not obs.recording() or (h.is_cuda and torch.cuda.is_current_stream_capturing()):
+        return contextlib.nullcontext()
+    return obs.span("model.shared_block", site=k, block=b, tokens=h.shape[0] * h.shape[1])
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -162,11 +203,24 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         else:
             blk["mlp"] = mlp_mod.init_mlp_params(generator, cfg, dtype, device)
         params["blocks"].append(blk)
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and cfg.hybrid_sites is None:
         params["shared_attn"] = {
             "ln": torch.ones((D,), dtype=dtype, device=device),
             "attn": attn_mod.init_attn_params(generator, cfg, dtype, device),
         }
+    elif cfg.family == "hybrid":
+        W, Fs, r = 2 * D, cfg.d_ff, cfg.shared_lora_rank
+        params["shared_blocks"] = [{
+            "ln1": torch.ones((W,), dtype=dtype, device=device),
+            "attn": attn_mod.init_attn_params(generator, cfg, dtype, device, d_in=W),
+            "ln2": torch.ones((D,), dtype=dtype, device=device),
+            "mlp": mlp_mod.init_gelu_mlp_params(generator, D, Fs, dtype, device),
+        } for _ in range(cfg.n_shared_blocks)]
+        params["sites"] = [{
+            "lora_a": dense_init(generator, (D, r), dtype=dtype, device=device),
+            "lora_b": dense_init(generator, (r, 2 * Fs), dtype=dtype, device=device),
+            "proj": dense_init(generator, (D, D), dtype=dtype, device=device),
+        } for _ in cfg.hybrid_sites]
     return params
 
 
@@ -287,13 +341,19 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     impl = _IMPLS[cfg.attn_impl]
     h = _act_constraint(embed_inputs(params, cfg, batch), cfg, mesh_info)
     if cfg.family in ("ssm", "hybrid"):
-        def ssm_block(blk, h):
+        def ssm_block(blk, h, x):
             h = _act_constraint(h, cfg, mesh_info)
-            return h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(h, blk["ln"], cfg.norm_eps), cfg,
+            return h + ssm_mod.ssm_forward(blk["ssm"], rms_norm(x, blk["ln"], cfg.norm_eps), cfg,
                                            impl=impl)
 
+        def attn(p, x):
+            return attn_mod.attn_forward(p, x, cfg, impl=impl)
+
+        e, sites = h, _sites(cfg)
         for i, blk in enumerate(params["blocks"]):
-            h = _remat(cfg, ssm_block, blk, h)
+            k = sites.get(i)
+            x = h if k is None else h + _shared_block(params, cfg, k, h, e, attn)
+            h = _remat(cfg, ssm_block, blk, h, x)
             if _shared_attn_index(cfg, i) is not None:
                 shared = params["shared_attn"]
                 h = h + attn_mod.attn_forward(shared["attn"],
@@ -416,8 +476,19 @@ def prefill(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], max_len
         cache = _empty_cache(cfg, h, max_len, mesh_info) if cfg.family == "hybrid" else {}
         rows = _seq_rows(cfg, mesh_info, max_len)
         states = []
+        e, sites = h, _sites(cfg)
         for i, blk in enumerate(params["blocks"]):
-            x = rms_norm(h, blk["ln"], cfg.norm_eps)
+            x = h
+            k = sites.get(i)
+            if k is not None:
+                def attn(p, x, k=k):
+                    o, kc, vc = attn_mod.attn_prefill(p, x, cfg, max_len, impl=impl)
+                    _fill(cache["k"], k, kc, rows)
+                    _fill(cache["v"], k, vc, rows)
+                    return o
+
+                x = h + _shared_block(params, cfg, k, h, e, attn)
+            x = rms_norm(x, blk["ln"], cfg.norm_eps)
             o, st = ssm_mod.ssm_forward(blk["ssm"], x, cfg, impl=impl, return_state=True)
             h = h + o
             states.append(st)
@@ -465,8 +536,18 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any], tokens: torch.T
     h = _embed_tokens(params, tokens)[:, None, :]       # (B,1,D)
     if cfg.family in ("ssm", "hybrid"):
         states = cache["ssm_state"]
+        e, sites = h, _sites(cfg)
         for i, blk in enumerate(params["blocks"]):
-            x = rms_norm(h, blk["ln"], cfg.norm_eps)
+            x = h
+            k = sites.get(i)
+            if k is not None:
+                def attn(p, x, k=k):
+                    return attn_mod.attn_decode_dispatch(
+                        p, x, _layer(cache["k"], k), _layer(cache["v"], k), lengths, cfg,
+                        mesh_info, impl=impl, active=active)
+
+                x = h + _shared_block(params, cfg, k, h, e, attn)
+            x = rms_norm(x, blk["ln"], cfg.norm_eps)
             o, new = ssm_mod.ssm_decode(blk["ssm"], x, tuple(a[i] for a in states), cfg)
             h = h + o
             for a, st in zip(states, new, strict=True):

@@ -12,7 +12,7 @@ config's dtype.
   dt = softplus(h @ w_dt + bias)     (B,S,nh)   fp32
   y  = SSD(x, dt, A, Bm, Cm, D)      (ops.ssd_scan: on the card the SSD kernel,
                                       and under autograd its backward too)
-  out = RMSNorm(y ⊙ silu(z)) @ w_out
+  out = RMSNorm(y ⊙ silu(z)) @ w_out  (the norm per group of d_inner / G)
 
 A layer's state is the tuple (conv_x, conv_B, conv_C, ssm): the last K-1
 raw conv inputs (B,K-1,C) in the config's dtype, and the SSM state
@@ -98,6 +98,19 @@ def _conv_step(x_t: torch.Tensor, w: torch.Tensor, b: torch.Tensor, state: torch
     return F.silu(out), window[:, 1:]
 
 
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """RMSNorm(y ⊙ silu(z)) taken per group of d_inner / n_groups, as Mamba2
+    and Zamba2 normalise it; one group is the norm over d_inner, as before."""
+    u = y * F.silu(z)
+    g = cfg.ssm.n_groups
+    if g == 1:
+        return rms_norm(u, w, cfg.norm_eps)
+    shape = u.shape
+    return rms_norm(u.reshape(*shape[:-1], g, shape[-1] // g), w.reshape(g, -1),
+                    cfg.norm_eps).reshape(shape)
+
+
 def _dt(p: dict, h: torch.Tensor) -> torch.Tensor:
     return F.softplus((h @ p["w_dt"]).float() + p["dt_bias"])
 
@@ -162,7 +175,7 @@ def ssm_forward(p: dict, hidden: torch.Tensor, cfg: ModelConfig, *, impl: str,
     Cm = Cm.reshape(b, seq, s.n_groups, s.d_state)
     y, ssm_state = _ssd(x, dt, A, Bm, Cm, p["D"], st[3], s, impl)
     y = y.reshape(b, seq, di)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm_w"], cfg)
     out = reduce_partial(y @ p["out_proj"])
     if return_state:
         return out, (cxs, cbs, ccs, ssm_state)
@@ -187,7 +200,7 @@ def ssm_decode(p: dict, hidden: torch.Tensor, state, cfg: ModelConfig):
     Cm = Cm.reshape(b, s.n_groups, s.d_state)
     y, new_ssm = _per_head_block(ops.ssm_decode_step, x, dt, A, Bm, Cm, p["D"], ssm_state)
     y = y.reshape(b, di)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm_w"], cfg)
     return reduce_partial(y @ p["out_proj"])[:, None], (cx, cb, cc, new_ssm)
 
 

@@ -96,6 +96,7 @@ DECODE_SHAPES = [
     (3, 8, 4, 32, 100),       # head_dim 32
 ]
 HEAD_DIMS = [32, 64, 128]
+FWD_HEAD_DIMS = HEAD_DIMS + [224]   # the forward flash and plain decode entries also take 224
 
 
 @pytest.fixture
@@ -147,7 +148,7 @@ def test_decode_attention_kernel_matches_plain(cuda_device, shape, dtype, window
 SPLIT_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 192]   # on and around the 64-key splits
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("grp", [1, 2, 7, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 40, 100])
@@ -172,7 +173,7 @@ def test_decode_kernel_at_split_boundaries(cuda_device, d, grp, dtype, window):
 FLASH_SQ = [1, 3, 19, 63, 64, 65, 300]
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("sq", FLASH_SQ)
 @pytest.mark.parametrize("extra_keys", [0, 37])
 @pytest.mark.parametrize("window", [None, 1, 48, 400])
@@ -195,7 +196,7 @@ def test_flash_kernel_tiles_and_right_alignment(cuda_device, d, sq, extra_keys, 
     _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", FWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_are_deterministic(cuda_device, d, dtype):
     """Two calls on the same inputs are bitwise equal: the decode kernel
@@ -209,11 +210,12 @@ def test_kernels_are_deterministic(cuda_device, d, dtype):
         outs = [ops.decode_attention(q, kc, vc, lens, window=window, impl="kernel")
                 for _ in range(2)]
         assert torch.equal(*outs)
-    qf = q.float() * d ** -0.5
-    parts = [ops.decode_attention_partials(qf, kc[:, 1024:2048], vc[:, 1024:2048],
-                                           torch.clamp(lens - 1024, 0, 1024), scale=1.0,
-                                           impl="kernel") for _ in range(2)]
-    assert all(torch.equal(a, b) for a, b in zip(*parts, strict=True))
+    if d in HEAD_DIMS:          # the partials are not built at 224
+        qf = q.float() * d ** -0.5
+        parts = [ops.decode_attention_partials(qf, kc[:, 1024:2048], vc[:, 1024:2048],
+                                               torch.clamp(lens - 1024, 0, 1024), scale=1.0,
+                                               impl="kernel") for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*parts, strict=True))
     qs = _randn(rng, (1, 300, 28, d), dtype, cuda_device)
     ks, vs = (_randn(rng, (1, 300, 4, d), dtype, cuda_device) for _ in range(2))
     outs = [ops.flash_attention(qs, ks, vs, window=48, impl="kernel") for _ in range(2)]
@@ -242,7 +244,8 @@ def test_c_entries_refuse_a_head_dim_they_are_not_built_for(cuda_device):
     assert da._kernel()(p, p, p, p, p, p, p, 1, 64, 4, 2, 48, -1, 1.0, 1, 1, 64, st) == 1
     assert da._partials_kernel()(p, p, p, p, p, p, p, p, p, 1, 64, 64 * 2 * 48, 4, 2, 48, -1,
                                  1.0, 1, 1, 64, st) == 1
-    assert sorted(fa.HEAD_DIMS) == sorted(da.HEAD_DIMS) == HEAD_DIMS
+    assert sorted(fa.HEAD_DIMS) == sorted(da.HEAD_DIMS) == FWD_HEAD_DIMS
+    assert sorted(fa.BWD_HEAD_DIMS) == sorted(da.PARTIALS_HEAD_DIMS) == HEAD_DIMS
 
 
 def test_decode_kernel_ignores_lengths_past_the_cache(cuda_device):

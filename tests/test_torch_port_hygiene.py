@@ -45,7 +45,8 @@ COPIED = [
 # The copies may differ from their originals by these edits, applied to
 # the original before the comparison: (regular expression, replacement),
 # each pattern matching exactly once. The runtime gains the device of its
-# tensor paths; four notes on the reference's own change history (which
+# tensor paths; the configs' base, the fields of Zamba2's shared blocks;
+# four notes on the reference's own change history (which
 # name its pull requests by number) are reworded.
 HISTORY_NOTE = r"PR[ -]\d+(?:/\d+)?"
 EDITS = {
@@ -57,6 +58,53 @@ EDITS = {
     ],
     "core/analysis.py": [
         (rf"scheduler \({HISTORY_NOTE}\) added", "scheduler added"),
+    ],
+    "configs/base.py": [
+        # ModelConfig gains the fields of Zamba2's shared blocks (unset, they
+        # keep the Zamba-style block) ...
+        (re.escape('    attn_every: int = 0               # hybrid: shared attn block after layers i%attn_every==attn_every-1\n'),
+         '    attn_every: int = 0               # hybrid: shared attn block after layers i%attn_every==attn_every-1\n'
+         + (
+            "    # --- Zamba2's shared transformer blocks (hybrid; unset, the Zamba-style\n"
+            '    # block above: one attention block added to the residual) ---\n'
+            "    # the layers whose Mamba2 input takes a shared block's output, in order\n"
+            "    # (Zamba2's hybrid_layer_ids); None: the Zamba-style block after every\n"
+            '    # attn_every-th layer. Set, there are n_layers // attn_every of them, and\n'
+            '    # each block reads concat(h, embeddings) and runs a gated-GELU MLP of d_ff.\n'
+            '    hybrid_sites: Optional[Tuple[int, ...]] = None\n'
+            '    n_shared_blocks: int = 1          # site k runs shared block k % n_shared_blocks\n'
+            "    shared_lora_rank: int = 0         # rank of each site's own LoRA on the MLP's gate_up\n"
+        )),
+        # ... and the checks of the sites and the attention scale
+        (re.escape('    # ------------------------------------------------------------------\n    @property\n    def resolved_head_dim(self) -> int:\n'),
+         (
+            '    def __post_init__(self):\n'
+            '        if self.hybrid_sites is None:\n'
+            '            if (self.n_shared_blocks, self.shared_lora_rank) != (1, 0):\n'
+            '                raise ValueError("more than one shared block, or a LoRA, needs hybrid_sites "\n'
+            '                                 "(the Zamba2 order)")\n'
+            '            return\n'
+            '        sites = tuple(int(i) for i in self.hybrid_sites)\n'
+            '        object.__setattr__(self, "hybrid_sites", sites)   # a JSON list, hashable now\n'
+            '        if self.family != "hybrid" or not self.attn_every:\n'
+            '            raise ValueError("hybrid_sites belong to a hybrid config with attn_every")\n'
+            '        if len(sites) != self.n_layers // self.attn_every:\n'
+            '            raise ValueError(f"{len(sites)} hybrid_sites, but the cache holds "\n'
+            '                             f"n_layers // attn_every = {self.n_layers // self.attn_every}")\n'
+            '        if list(sites) != sorted(set(sites)) or not 0 <= sites[0] <= sites[-1] < self.n_layers:\n'
+            '            raise ValueError(f"hybrid_sites {sites} must rise strictly within the layers")\n'
+            '        if self.n_shared_blocks < 1 or self.shared_lora_rank < 1:\n'
+            '            raise ValueError("the Zamba2 order needs a shared block and each site\'s LoRA")\n'
+            '\n'
+            '    @property\n'
+            '    def attn_scale(self) -> float:\n'
+            '        """The attention scores\' scale: (head_dim / 2)^-0.5 in the Zamba2\n'
+            '        order, as published, else head_dim^-0.5."""\n'
+            '        hd = self.resolved_head_dim\n'
+            '        return (hd / 2 if self.hybrid_sites is not None else hd) ** -0.5\n'
+            '\n'
+        )
+         + '    # ------------------------------------------------------------------\n    @property\n    def resolved_head_dim(self) -> int:\n'),
     ],
     "core/runtime.py": [
         (rf"\(the {HISTORY_NOTE} reference", "(the earlier reference"),
